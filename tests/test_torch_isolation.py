@@ -1,0 +1,33 @@
+"""tpu_hnsw_torch stands alone: importing it and running a build and a
+search loads neither JAX nor tpu_hnsw."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = """
+import sys
+import torch
+torch.set_num_threads(1)
+from tpu_hnsw_torch import BlockHnswIndex, FlatIndex, HnswConfig, Metric
+from tpu_hnsw_torch.io.datasets import synthetic_clustered
+from tpu_hnsw_torch.utils.recall import recall_at_k
+base, q = synthetic_clustered(1024, 16, n_queries=8, seed=0)
+idx = BlockHnswIndex(HnswConfig(dim=16, m=8, ef_construction=32),
+                     block_size=64).build(base)
+_, ids = idx.search(q, k=5, probes=idx.n_blocks)
+gt = FlatIndex(base, Metric.L2).search(q, k=5, exact=True)[1]
+assert recall_at_k(ids, gt, 5) == 1.0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tpu_hnsw"))
+print("LOADED", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout

@@ -1,0 +1,23 @@
+"""tpu_hnsw_torch — the PyTorch / CUDA port of ``tpu_hnsw``.
+
+The same index classes, configuration and result contract (distances in
+pgvector operator units, -1 for a missing id), on torch tensors. Every
+TPU kernel on a ported path is a CUDA kernel written for Hopper
+(``csrc/``), with a plain PyTorch version that runs on CPU tensors.
+
+This package imports neither JAX nor ``tpu_hnsw``.
+"""
+
+import torch
+
+# Exact paths rely on full-f32 matrix products, as the reference forces
+# Precision.HIGHEST: TF32 keeps ~3 decimal digits, and the |q|^2+|x|^2-2q.x
+# form loses nearest-neighbour order to it.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from tpu_hnsw_torch.config import HnswConfig, Metric  # noqa: E402
+from tpu_hnsw_torch.index.block import BlockHnswIndex  # noqa: E402
+from tpu_hnsw_torch.index.flat import FlatIndex  # noqa: E402
+
+__all__ = ["BlockHnswIndex", "FlatIndex", "HnswConfig", "Metric"]

@@ -1,0 +1,125 @@
+"""Exact (brute-force) KNN: the ground-truth oracle (port of
+``tpu_hnsw/index/flat.py``).
+
+A tiled scan: one ``[Q, tile]`` GEMM per tile of the table, a per-tile
+top-k, and a running merge. ``exact=True`` keeps the top-k of the f32
+scan itself (the oracle); the default keeps ``4k`` candidates per tile
+and re-ranks them with exact elementwise f32 distances.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_hnsw_torch.config import Metric
+from tpu_hnsw_torch.ops import distance as D
+from tpu_hnsw_torch.ops import topk as T
+
+
+def _stream_search(q, xs, xs_sq, valid, k: int, metric: Metric, tile: int):
+    """Tiled scan of ``xs [N, d]`` (``xs_sq [N]`` f32; ``valid [N]`` bool
+    or None). Returns (scores ``[Q, k]``, row positions ``[Q, k]``, -1 where
+    fewer than k valid rows exist)."""
+    if metric not in (Metric.L2, Metric.IP, Metric.COSINE):
+        raise NotImplementedError(
+            f"{metric} flat scan: not ported yet (ROADMAP queue 1)")
+    nq = q.shape[0]
+    q_sq = D.squared_norms(q)
+    # a bf16 table meets a bf16-rounded query with f32 products and sums
+    qx = q.to(xs.dtype).float()
+    best_d = torch.full((nq, 0), torch.inf, device=q.device)
+    best_i = torch.full((nq, 0), -1, dtype=torch.int64, device=q.device)
+    for off in range(0, xs.shape[0], tile):
+        xb = xs[off:off + tile]
+        dots = qx @ xb.float().T
+        if metric is Metric.L2:
+            sc = torch.clamp_min(
+                q_sq[:, None] + xs_sq[None, off:off + tile] - 2.0 * dots, 0.0)
+        else:
+            sc = -dots
+        if valid is not None:
+            sc = torch.where(valid[None, off:off + tile], sc, torch.inf)
+        tv, ti = T.topk_smallest(sc, min(k, xb.shape[0]))
+        vals, sel = T.topk_smallest(torch.cat([best_d, tv], 1),
+                                    min(k, best_d.shape[1] + tv.shape[1]))
+        best_i = torch.gather(torch.cat([best_i, ti + off], 1), 1, sel)
+        best_d = vals
+    if best_d.shape[1] < k:  # fewer rows than k
+        pad = k - best_d.shape[1]
+        best_d = torch.nn.functional.pad(best_d, (0, pad), value=torch.inf)
+        best_i = torch.nn.functional.pad(best_i, (0, pad), value=-1)
+    best_i = torch.where(torch.isfinite(best_d), best_i, -1)
+    return best_d, best_i
+
+
+def _rerank(q, x, cand_ids, metric: Metric, k: int, n: int):
+    """Exact f32 re-scoring of candidate ids ``[Q, C]`` -> top-k. Ids
+    outside ``[0, n)`` are masked to +inf rather than clipped into the
+    table, where they would rescore a real row and displace a neighbour."""
+    bad = (cand_ids < 0) | (cand_ids >= n)
+    v = x[torch.clamp(cand_ids, 0, n - 1)]
+    sc = torch.where(bad, torch.inf, D.batched_scores(q, v, metric))
+    vals, sel = T.topk_smallest(sc, k)
+    ids = torch.where(torch.isfinite(vals), torch.gather(cand_ids, 1, sel), -1)
+    return vals, ids
+
+
+class FlatIndex:
+    """Exact KNN over a device-resident vector table."""
+
+    BLOCK = 131072
+
+    def __init__(self, vectors, metric: Metric = Metric.L2, dtype=None,
+                 device=None):
+        if not isinstance(vectors, torch.Tensor):
+            vectors = torch.from_numpy(np.asarray(vectors, np.float32))
+        vectors = vectors.to(device=device or vectors.device,
+                             dtype=dtype or vectors.dtype)
+        if metric.needs_normalized:
+            vectors = D.l2_normalize(vectors)
+        self.metric = metric
+        self.vectors = vectors
+        self.device = vectors.device
+        self.n = int(vectors.shape[0])
+        self.dim = int(vectors.shape[1])
+        self._tile = min(self.BLOCK, 1 << (max(self.n - 1, 1)).bit_length())
+        self.vectors_sq = D.squared_norms(vectors)
+
+    @property
+    def size(self) -> int:
+        return self.n
+
+    def search_device(self, queries, k: int = 10, ef_search: int = 0,
+                      exact=None):
+        """Device-resident exact search; returns (distances, ids) tensors in
+        pgvector operator units. ``ef_search`` is accepted and ignored."""
+        if isinstance(queries, torch.Tensor):
+            q = queries.to(device=self.device, dtype=torch.float32)
+        else:
+            q = torch.from_numpy(np.asarray(queries, np.float32)).to(
+                self.device)
+        if q.ndim == 1:
+            q = q[None]
+        if self.metric.needs_normalized:
+            q = D.l2_normalize(q)
+        k_req, k = k, min(k, self.n)
+        if exact:
+            scores, ids = _stream_search(q, self.vectors, self.vectors_sq,
+                                         None, k, self.metric, self._tile)
+        else:
+            cand = min(4 * k, self.n)
+            _, cand_ids = _stream_search(q, self.vectors, self.vectors_sq,
+                                         None, cand, self.metric, self._tile)
+            scores, ids = _rerank(q, self.vectors, cand_ids, self.metric, k,
+                                  self.n)
+        if k < k_req:
+            scores = torch.nn.functional.pad(scores, (0, k_req - k),
+                                             value=torch.inf)
+            ids = torch.nn.functional.pad(ids, (0, k_req - k), value=-1)
+        return D.score_to_distance(scores, self.metric), ids
+
+    def search(self, queries, k: int = 10, exact=None):
+        """Returns numpy (distances ``[Q, k]`` in operator units, ids)."""
+        d, i = self.search_device(queries, k=k, exact=exact)
+        return d.cpu().numpy(), i.cpu().numpy()
