@@ -1,22 +1,41 @@
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing falls back to the CPU):
+Phases (any failure exits non-zero; nothing falls back to the CPU or to a
+plain version):
 
-1. print the card (``nvidia-smi`` name and power limit);
-2. require CUDA;
-3. build the ``expand_score`` kernel library from ``tpu_hnsw_torch/csrc``;
-4. hold the kernel against its plain PyTorch version at main-path shapes
-   (Q=1024, p in {8, 32}, S=256, d=128, B=4102) in f32, bf16 and int8,
-   L2 and IP, and time both with CUDA events;
-5. the main path at full size: ``BlockHnswIndex`` over
+1. require CUDA, then print the card (``nvidia-smi`` name and power limit);
+2. build both kernel libraries (``expand_score``, ``hamming_scan``) from
+   ``tpu_hnsw_torch/csrc`` with two ``nvcc`` processes started together;
+3. hold ``expand_score`` against its plain PyTorch version at main-path
+   shapes (Q=1024, p in {8, 32}, S=256, d=128, B=4102) in f32, bf16 and
+   int8, L2 and IP, plus the filter mask (int8, p=8), timing both with
+   CUDA events;
+4. the block path at full size: ``BlockHnswIndex`` over
    ``synthetic_clustered(1_000_000, 128, n_queries=4096, seed=42)``, built
    from host input and from a CUDA tensor, graded against the port's
    ``FlatIndex.search(exact=True)`` over bench.py's probe grid until
    recall@10 >= 0.95, then QPS over 1024-query chunks;
-6. print the kernel table as one JSON line, the card line, and last
+5. filter and lifecycle on that index: the 10%-selectivity filter of
+   bench.py, add, delete, filtered ``search_iterative``, ``compact`` and a
+   ``save``/``load`` round trip;
+6. the binary path at full width: ``binary_quantize`` of
+   ``synthetic_clustered(1_000_000, 1536, n_queries=4096, seed=42)`` (the
+   shape of dbpedia-entities-openai-1M, binary-quantized as pgvector's
+   README does). ``hamming_scan`` against its plain version at
+   1024 x 1M x 48 words, a ragged 47, and the first and last query chunks
+   the flat oracle gives it (partly filled query tiles); the
+   ``BinaryFlatIndex`` oracle; ``BinaryHnswIndex`` hamming (probe grid to
+   tie-aware recall@10 >= 0.95, exact distances, QPS) and jaccard
+   (rerank_k=100, exact distances); ``expand_score`` at d=1536 on each
+   index's int8 copy (hamming L2 with a mask, jaccard cosine);
+7. print the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
+
+Each path's kernel launch counters are set to 0 just before it and read
+just after it; launches made to compare a kernel with its plain version
+are not counted.
 """
 
 from __future__ import annotations
@@ -24,15 +43,22 @@ from __future__ import annotations
 import json
 import math
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from tpu_hnsw_torch import BlockHnswIndex, FlatIndex, HnswConfig, Metric
+from tpu_hnsw_torch import (BinaryFlatIndex, BinaryHnswIndex, BlockHnswIndex,
+                            FlatIndex, HnswConfig, Metric)
 from tpu_hnsw_torch.index.block import _make_score_copy, _quantize_rows
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
+from tpu_hnsw_torch.ops import _nvcc
+from tpu_hnsw_torch.ops import bitops as BO
 from tpu_hnsw_torch.ops import expand as X
+from tpu_hnsw_torch.ops import hamming as H
+from tpu_hnsw_torch.ops.vector_ops import binary_quantize
 from tpu_hnsw_torch.utils.recall import recall_at_k
 
 N, DIM, NQ, DATA_SEED = 1_000_000, 128, 4096, 42
@@ -46,6 +72,9 @@ KERNEL_Q = 1024
 # integers (only the dequantising multiply rounds); f32 differs in summation
 # order only; bf16 too, with a looser bound for its bf16-rounded operands
 RTOL = {"int8": 1e-6, "float32": 1e-5, "bfloat16": 1e-3}
+BIN_DIM = 1536             # dbpedia-entities-openai-1M's width, in bits
+FILTER_SEED, FILTER_SHARE = 17, 0.10  # bench.py:185-196
+N_ADD = 10_000
 
 
 def card_line() -> str:
@@ -90,6 +119,7 @@ def kernel_phase(base: np.ndarray, queries: np.ndarray, card: str,
     q8, q_scl = _quantize_rows(q)
     rng = np.random.default_rng(0)
     results = []
+    cscale = (blocks_sq.max() + q_sq.max()).item()
     for dtype, (bl, scale) in copies.items():
         kw = {} if scale is None else dict(q8=q8, q_scale=q_scl,
                                             score_scale=scale)
@@ -98,40 +128,62 @@ def kernel_phase(base: np.ndarray, queries: np.ndarray, card: str,
                 rng.integers(0, B, size=(KERNEL_Q, p))).to(dev)
             for metric in (Metric.L2, Metric.IP):
                 args = (bl, blocks_sq, block_ids, q, q_sq, bids, metric)
-                got = X.expand_score(*args, **kw)
-                want = X.expand_score_reference(*args, **kw)
-                torch.cuda.synchronize()
-                fin = torch.isfinite(want)
-                assert torch.equal(fin, torch.isfinite(got)), "inf pattern"
-                err = (got - want).abs()[fin]
-                cscale = (blocks_sq.max() + q_sq.max()).item()
-                rel = (err / (cscale + want.abs()[fin])).max().item()
-                rec = {
-                    "dtype": dtype, "metric": metric.value, "Q": KERNEL_Q,
-                    "p": p, "S": BLOCK, "d": DIM, "B": B,
-                    "max_abs_err": err.max().item(), "rel_err": rel,
-                    "rtol": RTOL[dtype],
-                    "ms": cuda_ms(lambda: X.expand_score(*args, **kw), 20),
-                    "plain_ms": cuda_ms(
-                        lambda: X.expand_score_reference(*args, **kw), 5, 1),
-                }
-                gb = KERNEL_Q * p * BLOCK * bl.shape[2] * bl.element_size()
-                rec["kernel_GBps"] = gb / rec["ms"] / 1e6
-                print(f"kernel {dtype} {metric.value} p={p}: "
-                      f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
-                      f"{rec['kernel_GBps']:.1f} GB/s of block rows), "
-                      f"max_abs_err {rec['max_abs_err']:.3g}, rel {rel:.3g} "
-                      f"[{card}]", flush=True)
-                assert rel <= RTOL[dtype], rec
-                results.append(rec)
+                results.append(expand_variant(
+                    args, kw, dtype, metric, card, cscale,
+                    shape=dict(Q=KERNEL_Q, p=p, S=BLOCK, d=DIM, B=B)))
+    # the filter mask (10% of rows allowed) on the main path's int8 copy
+    bl, scale = copies["int8"]
+    bids = torch.from_numpy(rng.integers(0, B, size=(KERNEL_Q, 8))).to(dev)
+    allowed = torch.from_numpy(rng.random((B, BLOCK)) < FILTER_SHARE).to(dev)
+    kw = dict(q8=q8, q_scale=q_scl, score_scale=scale, allowed=allowed)
+    results.append(expand_variant(
+        (bl, blocks_sq, block_ids, q, q_sq, bids, Metric.L2), kw, "int8",
+        Metric.L2, card, cscale,
+        shape=dict(Q=KERNEL_Q, p=8, S=BLOCK, d=DIM, B=B)))
     del rows, blocks, copies
     torch.cuda.empty_cache()
     return results
 
 
+def expand_variant(args, kw, dtype, metric, card, cscale, shape) -> dict:
+    """expand_score against its plain version on the same card tensors:
+    the same +inf pattern (dead or disallowed rows), rel err under RTOL,
+    and both times."""
+    got = X.expand_score(*args, **kw)
+    want = X.expand_score_reference(*args, **kw)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got)), "inf pattern"
+    if "allowed" in kw:
+        dead = (args[2] < 0) | ~kw["allowed"]
+        assert torch.equal(~fin, dead[args[5]]), "masked rows must score inf"
+    err = (got - want).abs()[fin]
+    rel = (err / (cscale + want.abs()[fin])).max().item()
+    rec = {
+        "dtype": dtype, "metric": metric.value, **shape,
+        "masked": "allowed" in kw,
+        "max_abs_err": err.max().item(), "rel_err": rel,
+        "rtol": RTOL[dtype],
+        "ms": cuda_ms(lambda: X.expand_score(*args, **kw), 20),
+        "plain_ms": cuda_ms(lambda: X.expand_score_reference(*args, **kw),
+                            5, 1),
+    }
+    bl = args[0]
+    gb = shape["Q"] * shape["p"] * shape["S"] * bl.shape[2] * bl.element_size()
+    rec["kernel_GBps"] = gb / rec["ms"] / 1e6
+    print(f"kernel {dtype} {metric.value} p={shape['p']} d={shape['d']}"
+          f"{' masked' if rec['masked'] else ''}: {rec['ms']:.4f} ms "
+          f"(plain {rec['plain_ms']:.4f} ms, {rec['kernel_GBps']:.1f} GB/s "
+          f"of block rows), max_abs_err {rec['max_abs_err']:.3g}, "
+          f"rel {rel:.3g} [{card}]", flush=True)
+    assert rel <= RTOL[dtype], rec
+    return rec
+
+
 def main_path(base: np.ndarray, queries: np.ndarray, card: str,
-              dev: torch.device) -> dict:
-    """Build twice, grade, pick probes, measure QPS. Returns the numbers."""
+              dev: torch.device):
+    """Build twice, grade, pick probes, measure QPS. Returns the numbers
+    and the device-input index."""
     cfg = HnswConfig(dim=DIM, m=16, ef_construction=64, seed=0)
     out = {}
     idx_host = BlockHnswIndex(cfg, block_size=BLOCK, device=dev).build(base)
@@ -196,44 +248,350 @@ def main_path(base: np.ndarray, queries: np.ndarray, card: str,
           f"{NQ} queries, min {min(windows):.1f}, max {max(windows):.1f}) "
           f"at probes {chosen}, {CHUNK}-query chunks, peak device memory "
           f"{out['peak_mem_GB']:.2f} GB [{card}]", flush=True)
+    return out, idx
+
+
+def timed_build(name: str):
+    t0 = time.perf_counter()
+    path, log = _nvcc.build_library(name)
+    return path, log, time.perf_counter() - t0
+
+
+def build_phase() -> dict:
+    """Both kernel libraries, compiled by two nvcc processes at once."""
+    names = (X.NAME, H.NAME)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        done = {n: pool.submit(timed_build, n) for n in names}
+        built = {n: f.result() for n, f in done.items()}
+    for name, (path, log, secs) in built.items():
+        print(f"kernel library {name}: {path} built in {secs:.2f} s",
+              flush=True)
+        if log:
+            print(log.strip(), flush=True)
+    wall = time.perf_counter() - t0
+    print(f"both kernel libraries built in {wall:.2f} s", flush=True)
+    return {n: b[2] for n, b in built.items()}
+
+
+def sq_bound(*arrays) -> float:
+    """d * eps_f32 * sum of max squared norms: the f32 summation bound of
+    the |q|^2 + |x|^2 - 2 q.x form over d terms."""
+    return arrays[0].shape[1] * float(np.finfo(np.float32).eps) * sum(
+        float((a.astype(np.float64) ** 2).sum(1).max()) for a in arrays)
+
+
+def lifecycle_phase(idx, base: np.ndarray, queries: np.ndarray, chosen: int,
+                    card: str, dev: torch.device) -> dict:
+    """Filter, add, delete, filtered iterative scan, compact and a
+    save/load round trip on the 1M x 128 index."""
+    out = {}
+    qdev = torch.from_numpy(queries).to(dev)
+    fmask = np.random.default_rng(FILTER_SEED).random(N) < FILTER_SHARE
+    allowed_ids = np.where(fmask)[0]
+    fsub = FlatIndex(torch.from_numpy(base[allowed_ids]).to(dev), Metric.L2)
+    fgt = allowed_ids[fsub.search(qdev, k=10, exact=True)[1]]
+    del fsub
+    t0 = time.perf_counter()
+    _, fids = idx.search(qdev, k=10, probes=2 * chosen, filter_mask=fmask)
+    out["filtered_s"] = time.perf_counter() - t0
+    assert (fids >= 0).all() and fmask[fids].all(), "a filtered-out id"
+    out["filtered_recall"] = recall_at_k(fids, fgt, 10)
+    print(f"filter {FILTER_SHARE:.0%} (bench.py mask): recall@10 "
+          f"{out['filtered_recall']:.4f} at probes {2 * chosen}, no "
+          f"disallowed id [{card}]", flush=True)
+
+    rng = np.random.default_rng(7)
+    extra = (base[rng.integers(0, N, N_ADD)]
+             + rng.normal(0.0, 0.5, size=(N_ADD, DIM))).astype(np.float32)
+    t0 = time.perf_counter()
+    new_ids = idx.add(extra)
+    out["add_s"] = time.perf_counter() - t0
+    assert (new_ids == np.arange(N, N + N_ADD)).all()
+    probe = extra[:256]
+    d, ids = idx.search(probe, k=1, probes=chosen)
+    assert (ids[:, 0] == new_ids[:256]).all(), "an added row is not found"
+    out["added_self_dist_max"] = float(d[:, 0].max())
+    assert (d[:, 0].astype(np.float64) ** 2 <= sq_bound(probe, probe)).all()
+
+    victims = rng.choice(N + N_ADD, (N + N_ADD) // 100, replace=False)
+    t0 = time.perf_counter()
+    idx.delete(victims)
+    out["delete_s"] = time.perf_counter() - t0
+    for qs in (qdev, probe):
+        _, ids = idx.search(qs, k=10, probes=chosen)
+        assert not np.isin(ids, victims).any(), "a deleted id came back"
+    _, ids = idx.search(qdev, k=10, probes=2 * chosen, filter_mask=fmask)
+    assert not np.isin(ids, victims).any() and fmask[ids[ids >= 0]].all()
+    print(f"add {N_ADD} rows {out['add_s']:.3f} s (self distance max "
+          f"{out['added_self_dist_max']:.3g}), delete {len(victims)} ids "
+          f"{out['delete_s']:.3f} s: none comes back [{card}]", flush=True)
+
+    passes = np.random.default_rng(FILTER_SEED + 1).random(N + N_ADD) \
+        < FILTER_SHARE
+    t0 = time.perf_counter()
+    _, ids = idx.search_iterative(queries[:CHUNK], k=10,
+                                  predicate=lambda i: passes[i])
+    out["iterative_s"] = time.perf_counter() - t0
+    got = ids[ids >= 0]
+    assert passes[got].all() and not np.isin(got, victims).any()
+    out["iterative_filled"] = float((ids >= 0).mean())
+    print(f"search_iterative, 10% predicate, {CHUNK} queries: "
+          f"{out['iterative_s']:.3f} s, {out['iterative_filled']:.4f} of "
+          f"slots filled, every id passes [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    idx.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    assert idx.tail_n == 0 and idx.size == N + N_ADD - len(victims)
+    # the added rows now live in blocks: all probes find each one exactly
+    _, ids = idx.search(probe, k=1, probes=idx.n_blocks)
+    alive = ~np.isin(new_ids[:256], victims)
+    assert (ids[alive, 0] == new_ids[:256][alive]).all()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        idx.save(tmp)
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx2 = BlockHnswIndex.load(tmp, device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+    d1, i1 = idx.search(qdev, k=10, probes=chosen)
+    d2, i2 = idx2.search(qdev, k=10, probes=chosen)
+    assert np.array_equal(i1, i2) and np.array_equal(d1, d2), "save/load"
+    del idx2
+    print(f"compact {out['compact_s']:.3f} s ({idx.n_blocks} blocks); "
+          f"save {out['save_s']:.3f} s, load {out['load_s']:.3f} s: "
+          f"identical ids and distances [{card}]", flush=True)
     return out
 
 
+def hamming_variant(q, x, card: str, what: str) -> dict:
+    """hamming_scan against its plain version on the same card tensors:
+    exactly equal int32. The plain version's time is that of the full-size
+    call the equality check makes (CUDA events, one call)."""
+    Q, W = q.shape
+    n = x.shape[0]
+    got = H.hamming_scan(q, x)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = H.hamming_scan_reference(q, x)
+    end.record()
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    err = 0 if equal else (got.long() - want.long()).abs().max().item()
+    del got, want
+    rec = {"Q": Q, "N": n, "W": W, "bits": W * 32, "shape_of": what,
+           "exact_equal": equal, "max_abs_err": err,
+           "ms": cuda_ms(lambda: H.hamming_scan(q, x), 5, 1),
+           "plain_ms": start.elapsed_time(end)}
+    rec["Gpopc_per_s"] = Q * n * W / rec["ms"] / 1e6
+    print(f"hamming_scan Q={Q} N={n} W={W} ({what}): {rec['ms']:.3f} ms "
+          f"(plain {rec['plain_ms']:.1f} ms), {rec['Gpopc_per_s']:.0f} G "
+          f"popcounts/s, exactly equal {equal} [{card}]", flush=True)
+    assert equal, rec
+    return rec
+
+
+def oracle_chunks(n_queries: int) -> list[tuple[int, int]]:
+    """(start, stop) of the first and the last query chunk that
+    BinaryFlatIndex.search_device hands the kernel over N rows: the last
+    one ends in a partly filled query tile."""
+    step = max(1, BO._SCAN_CHUNK_ELEMS // N)
+    last = (n_queries - 1) // step * step
+    return [(0, min(step, n_queries)), (last, n_queries)]
+
+
+def true_hamming(qp, xp, ids: np.ndarray) -> np.ndarray:
+    """Exact hamming distances of the returned ids, popcount(q ^ x)."""
+    rows = xp[torch.from_numpy(ids.astype(np.int64)).to(xp.device)]
+    return BO.hamming_distance(qp[:, None, :], rows).cpu().numpy()
+
+
+def binary_phase(card: str, dev: torch.device) -> dict:
+    """The binary path at 1M x 1536 bits: kernel checks, the flat oracle,
+    the hamming and jaccard indexes."""
+    out = {}
+    t0 = time.perf_counter()
+    base, queries = synthetic_clustered(N, BIN_DIM, n_queries=NQ,
+                                        seed=DATA_SEED)
+    bits = binary_quantize(base).numpy()
+    qbits = binary_quantize(queries).numpy()
+    del base, queries
+    out["data_s"] = time.perf_counter() - t0
+    print(f"binary data {bits.shape} in {out['data_s']:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    bits_dev = torch.from_numpy(bits).to(dev)
+    xp = BO.pack_bits(bits_dev)                           # [N, 48] words
+    qp = BO.pack_bits(torch.from_numpy(qbits).to(dev))    # [NQ, 48]
+    ham = [hamming_variant(qp[:KERNEL_Q], xp, card, "full tiles")]
+    ham.append(hamming_variant(BO.pack_bits(torch.from_numpy(
+        qbits[:KERNEL_Q, :1500]).to(dev)), BO.pack_bits(bits_dev[:, :1500]),
+        card, "ragged W"))
+    # the oracle's own chunks: hamming over NQ queries, jaccard over CHUNK
+    chunks = {}
+    for metric, nq in (("hamming", NQ), ("jaccard", CHUNK)):
+        for se in oracle_chunks(nq):
+            chunks.setdefault(se, []).append(metric)
+    for (s, e), metrics in sorted(chunks.items()):
+        ham.append(hamming_variant(
+            qp[s:e], xp, card, f"{'+'.join(metrics)} oracle chunk {s}:{e}"))
+    torch.cuda.empty_cache()
+
+    H.LAUNCHES = X.LAUNCHES = 0  # count only the binary path's launches
+    t0 = time.perf_counter()
+    gt_d, gt = BinaryFlatIndex(xp, metric="hamming").search(qp, k=10)
+    out["flat_oracle_s"] = time.perf_counter() - t0
+    hidx = BinaryHnswIndex(BIN_DIM, "hamming", engine="block",
+                           block_size=BLOCK, device=dev).build(bits_dev)
+    st = hidx.inner.build_stats
+    out["build_s"], out["build_vps"] = st["total_s"], st["vectors_per_sec"]
+    print(f"BinaryFlatIndex oracle, {NQ} queries: "
+          f"{out['flat_oracle_s']:.3f} s; hamming index build "
+          f"{st['total_s']} s, {st['vectors_per_sec']} vec/s, "
+          f"{hidx.inner.n_blocks} blocks, stages {json.dumps(st)} [{card}]",
+          flush=True)
+    chosen = None
+    for p in (p for p in PROBE_GRID if p <= hidx.inner.n_blocks):
+        d, ids = hidx.search(qbits, k=10, probes=p)
+        true = true_hamming(qp, xp, ids)
+        tie = float((true <= gt_d[:, 9:10]).mean())
+        r = recall_at_k(ids, gt, 10)
+        print(f"hamming probes {p}: tie-aware recall@10 {tie:.4f}, id "
+              f"recall@10 {r:.4f} [{card}]", flush=True)
+        if tie >= TARGET_RECALL:
+            chosen = p
+            out.update(probes=p, tie_recall=tie, id_recall=r)
+            break
+    assert chosen is not None, "no probe count reached the target recall"
+    assert (ids >= 0).all() and np.array_equal(d, true.astype(np.float32)), \
+        "hamming distances must be the exact popcounts"
+
+    def serve_pass():
+        for s in range(0, NQ, CHUNK):
+            _, last = hidx.search(qbits[s:s + CHUNK], k=10, probes=chosen)
+        return last
+
+    serve_pass()
+    windows = []
+    for _ in range(9):
+        t0 = time.perf_counter()
+        serve_pass()
+        windows.append(NQ / (time.perf_counter() - t0))
+    out["qps"], out["qps_windows"] = float(np.median(windows)), windows
+    print(f"hamming QPS {out['qps']:.1f} (median of 9 windows of {NQ} "
+          f"queries through BinaryHnswIndex.search, min {min(windows):.1f}, "
+          f"max {max(windows):.1f}) at probes {chosen}, exact integer "
+          f"distances [{card}]", flush=True)
+
+    jidx = BinaryHnswIndex(BIN_DIM, "jaccard", engine="block",
+                           block_size=BLOCK, device=dev).build(bits_dev)
+    jgt_d, jgt = BinaryFlatIndex(xp, metric="jaccard").search(qp[:CHUNK],
+                                                              k=10)
+    d, ids = jidx.search(qbits[:CHUNK], k=10, probes=chosen, rerank_k=100)
+    rows = xp[torch.from_numpy(ids.astype(np.int64)).to(dev)]
+    true = BO.jaccard_distance(qp[:CHUNK, None, :].expand_as(rows),
+                               rows).cpu().numpy()
+    assert (ids >= 0).all() and np.array_equal(d, true), \
+        "jaccard distances must be exact"
+    out["jaccard_tie_recall"] = float((true <= jgt_d[:, 9:10]).mean())
+    out["jaccard_id_recall"] = recall_at_k(ids, jgt, 10)
+    out["jaccard_build_s"] = jidx.inner.build_stats["total_s"]
+    print(f"jaccard index build {out['jaccard_build_s']} s; probes {chosen}, "
+          f"rerank_k 100, {CHUNK} queries: tie-aware recall@10 "
+          f"{out['jaccard_tie_recall']:.4f}, id recall@10 "
+          f"{out['jaccard_id_recall']:.4f}, exact distances [{card}]",
+          flush=True)
+    assert out["jaccard_tie_recall"] >= 0.85
+    out["launches"] = {"hamming_scan": H.LAUNCHES, "expand_score": X.LAUNCHES}
+    assert H.LAUNCHES > 0 and X.LAUNCHES > 0, out["launches"]
+    out["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"binary path launches {json.dumps(out['launches'])}, peak device "
+          f"memory {out['peak_mem_GB']:.2f} GB [{card}]", flush=True)
+
+    # expand_score at d = 1536 on each index's own int8 copy and queries
+    # (after the counts were read): the hamming index's L2 with a filter
+    # mask, the jaccard index's cosine (the IP epilogue) as it serves
+    rng = np.random.default_rng(3)
+    qb = torch.from_numpy(qbits[:KERNEL_Q]).to(dev)
+    wide = []
+    for ix, allow in ((hidx, True), (jidx, False)):
+        inner = ix.inner
+        q = inner._queries(qb)
+        q8, q_scl = _quantize_rows(q)
+        B = inner.n_blocks
+        bids = torch.from_numpy(
+            rng.integers(0, B, size=(KERNEL_Q, chosen))).to(dev)
+        kw = dict(q8=q8, q_scale=q_scl, score_scale=inner.score_scale)
+        if allow:
+            kw["allowed"] = torch.from_numpy(
+                rng.random((B, BLOCK)) < FILTER_SHARE).to(dev)
+        q_sq = (q * q).sum(1)
+        metric = inner.cfg.metric
+        wide.append(expand_variant(
+            (inner.blocks_score, inner.blocks_sq, inner.block_ids, q, q_sq,
+             bids, metric), kw, "int8", metric, card,
+            (inner.blocks_sq.max() + q_sq.max()).item(),
+            shape=dict(Q=KERNEL_Q, p=chosen, S=BLOCK, d=BIN_DIM, B=B)))
+    return {"numbers": out, "hamming": ham, "expand_d1536": wide}
+
+
 def main() -> None:
-    card = card_line()
-    print(f"card: {card}", flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script needs a GPU")
-    t0 = time.perf_counter()
-    path, log = X.build_library()
-    X.load_library()
-    print(f"kernel library {path} built/loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    if log:
-        print(log.strip(), flush=True)
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    builds = build_phase()
     t0 = time.perf_counter()
     base, queries = synthetic_clustered(N, DIM, n_queries=NQ, seed=DATA_SEED)
     print(f"data {base.shape} in {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
     variants = kernel_phase(base, queries, card, dev)
 
-    X.LAUNCHES = 0  # count only the main path's launches
-    numbers = main_path(base, queries, card, dev)
+    X.LAUNCHES = H.LAUNCHES = 0  # count only the block path's launches
+    numbers, idx = main_path(base, queries, card, dev)
     launches = X.LAUNCHES
-    assert launches > 0, "the main path never launched expand_score"
+    assert launches > 0, "the block path never launched expand_score"
+    X.LAUNCHES = 0
+    life = lifecycle_phase(idx, base, queries, numbers["probes"], card, dev)
+    life_launches = X.LAUNCHES
+    assert life_launches > 0, "filter/lifecycle never launched expand_score"
+    del idx, base, queries
+    torch.cuda.empty_cache()
 
+    binary = binary_phase(card, dev)
+    variants.extend(binary["expand_d1536"])
+    ham = binary["hamming"]
     head = next(v for v in variants if v["dtype"] == "int8"
-                and v["metric"] == "l2" and v["p"] == 8)
-    print(json.dumps({"main_path": numbers, "card": card}), flush=True)
+                and v["metric"] == "l2" and v["p"] == 8 and v["d"] == DIM
+                and not v["masked"])
+    print(json.dumps({"main_path": numbers, "lifecycle": life,
+                      "binary": binary["numbers"], "nvcc_s": builds,
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "expand_score", "route": "cuda",
         "source": "tpu_hnsw_torch/csrc/expand_score.cu",
         "replaces": "tpu_hnsw/ops/pallas_expand.py:141",
         "launches": launches,
+        "launches_by_path": {
+            "block_1Mx128": launches, "block_lifecycle": life_launches,
+            "binary_1Mx1536": binary["numbers"]["launches"]["expand_score"]},
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "timed_at": "int8 l2 Q=1024 p=8 S=256 d=128",
         "variants": variants,
+    }, {
+        "name": "hamming_scan", "route": "cuda",
+        "source": "tpu_hnsw_torch/csrc/hamming_scan.cu",
+        "replaces": "tpu_hnsw/ops/pallas_hamming.py:52",
+        "launches": binary["numbers"]["launches"]["hamming_scan"],
+        "max_abs_err": max(v["max_abs_err"] for v in ham),
+        "ms": ham[0]["ms"], "plain_ms": ham[0]["plain_ms"],
+        "timed_at": "Q=1024 N=1000000 W=48 (1536 bits)",
+        "variants": ham,
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -167,18 +167,12 @@ def test_ip_metric():
     assert recall_at_k(ids, gt, 10) >= 0.9
 
 
-def test_later_slices_raise_not_implemented():
+def test_later_slices_raise_not_implemented(tmp_path):
+    """Graph routing (ROADMAP slice 2) is the part of the engine still
+    unported: asking for it, needing it, or loading a saved centroid graph
+    raises NotImplementedError naming the slice."""
     base, q = _data(n=1024)
-    idx = BlockHnswIndex(CFG, block_size=64).build(base)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.search(q, k=10, filter_mask=np.ones(1024, bool))
-    for call in (lambda: idx.add(base[:2]), lambda: idx.delete([0]),
-                 idx.compact, lambda: idx.save("x"),
-                 lambda: BlockHnswIndex.load("x"),
-                 lambda: idx.search_iterative(q)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    with pytest.raises(NotImplementedError, match="graph"):
+    with pytest.raises(NotImplementedError, match="slice 2"):
         BlockHnswIndex(CFG, routing="graph")
     # "auto" needs graph routing above EXACT_ROUTING_MAX blocks; "exact"
     # scans every centroid at any block count
@@ -189,3 +183,7 @@ def test_later_slices_raise_not_implemented():
     exact = BlockHnswIndex(CFG, block_size=64, routing="exact")
     exact.EXACT_ROUTING_MAX = 8
     assert exact.build(base).n_blocks == 17
+    exact.save(str(tmp_path / "x"))
+    (tmp_path / "x" / "centroid_graph").mkdir()
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        BlockHnswIndex.load(str(tmp_path / "x"))

@@ -142,6 +142,19 @@ def test_cpu_tensors_take_the_plain_version():
     assert X.LAUNCHES == before
 
 
+def test_allowed_mask_scores_disallowed_rows_inf():
+    """The filter mask: a disallowed row scores +inf exactly as a dead row
+    does; every other score is unchanged (bit-equal)."""
+    blocks, block_ids, q, bids = _case()
+    allowed = np.random.default_rng(4).random(block_ids.shape) < 0.5
+    args = (_t(blocks), _t((blocks ** 2).sum(-1)), _t(block_ids), _t(q),
+            _t((q * q).sum(1)), _t(bids), Metric.L2)
+    plain = X.expand_score(*args).numpy()
+    got = X.expand_score(*args, allowed=_t(allowed)).numpy()
+    want = np.where(allowed[bids], plain, np.inf)
+    np.testing.assert_array_equal(got, want)
+
+
 def _rel_err(got, want, scale):
     """max |got - want| / (scale + |want|) over finite entries; scale is the
     cancellation scale max(q_sq + x_sq) of the L2 form."""
@@ -153,7 +166,8 @@ def _rel_err(got, want, scale):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,dp,rtol", [
     ("float32", 128, 1e-5), ("float32", 30, 1e-5),   # 16- and 4-byte loads
-    ("bfloat16", 64, 1e-5), ("int8", 128, 1e-6), ("int8", 48, 1e-6)])
+    ("bfloat16", 64, 1e-5), ("int8", 128, 1e-6), ("int8", 48, 1e-6),
+    ("int8", 1536, 1e-6)])  # 96 16-byte chunks a row: 32 lanes
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_kernel_matches_reference_on_card(dtype, dp, rtol, metric):
     """The CUDA kernel against the plain version on the same card tensors.
@@ -188,3 +202,39 @@ def test_kernel_matches_reference_on_card(dtype, dp, rtol, metric):
     want = X.expand_score_reference(*args, **kw)
     scale = (args[1].max() + args[4].max()).item()
     assert _rel_err(got, want, scale) <= rtol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dp", [("int8", 128), ("int8", 1536),
+                                      ("bfloat16", 128)])
+def test_kernel_allowed_mask_on_card(dtype, dp):
+    """The kernel with a filter mask against the plain version with the same
+    mask: the same +inf pattern (dead or disallowed rows), and the other
+    scores within the tolerances above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(dp)
+    B, S, Q, p = 30, 256, 16, 8
+    x = _t(rng.normal(size=(B, S, dp)).astype(np.float32)).to(dev)
+    block_ids = _t(rng.integers(-1, 100, size=(B, S)).astype(np.int32)).to(dev)
+    allowed = _t(rng.random((B, S)) < 0.1).to(dev)
+    q = _t(rng.normal(size=(Q, dp)).astype(np.float32)).to(dev)
+    bids = _t(rng.integers(0, B, size=(Q, p))).to(dev)
+    kw = {"allowed": allowed}
+    if dtype == "int8":
+        scale = torch.clamp_min(x.abs().amax(dim=(1, 2)), 1e-30) / 127
+        blocks = torch.round(x / scale[:, None, None]).to(torch.int8)
+        q8, q_scl = _quantize_rows(q)
+        kw.update(q8=q8, q_scale=q_scl, score_scale=scale)
+    else:
+        blocks = x.to(torch.bfloat16)
+    args = (blocks, (blocks.float() ** 2).sum(-1), block_ids, q,
+            (q * q).sum(1), bids, Metric.L2)
+    got = X.expand_score(*args, **kw)
+    want = X.expand_score_reference(*args, **kw)
+    torch.cuda.synchronize()
+    dead = (block_ids < 0) | ~allowed
+    assert torch.equal(torch.isinf(want), dead[bids])
+    scale = (args[1].max() + args[4].max()).item()
+    assert _rel_err(got, want, scale) <= (1e-6 if dtype == "int8" else 1e-5)

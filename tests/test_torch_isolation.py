@@ -11,7 +11,10 @@ SCRIPT = """
 import sys
 import torch
 torch.set_num_threads(1)
-from tpu_hnsw_torch import BlockHnswIndex, FlatIndex, HnswConfig, Metric
+from tpu_hnsw_torch import (BinaryFlatIndex, BinaryHnswIndex, BlockHnswIndex,
+                            FlatIndex, HnswConfig, Metric)
+from tpu_hnsw_torch.ops.bitops import pack_bits
+from tpu_hnsw_torch.ops.vector_ops import binary_quantize
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
 from tpu_hnsw_torch.utils.recall import recall_at_k
 base, q = synthetic_clustered(1024, 16, n_queries=8, seed=0)
@@ -20,6 +23,11 @@ idx = BlockHnswIndex(HnswConfig(dim=16, m=8, ef_construction=32),
 _, ids = idx.search(q, k=5, probes=idx.n_blocks)
 gt = FlatIndex(base, Metric.L2).search(q, k=5, exact=True)[1]
 assert recall_at_k(ids, gt, 5) == 1.0
+bits = binary_quantize(base).numpy()
+bidx = BinaryHnswIndex(16, engine="block", block_size=64).build(bits)
+d, ids = bidx.search(bits[:8], k=5, probes=bidx.inner.n_blocks)
+gd, _ = BinaryFlatIndex.from_bits(bits).search(pack_bits(bits[:8]), k=5)
+assert (d == gd).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tpu_hnsw"))
 print("LOADED", bad)

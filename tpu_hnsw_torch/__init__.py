@@ -17,7 +17,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from tpu_hnsw_torch.config import HnswConfig, Metric  # noqa: E402
+from tpu_hnsw_torch.index.binary import BinaryHnswIndex  # noqa: E402
 from tpu_hnsw_torch.index.block import BlockHnswIndex  # noqa: E402
 from tpu_hnsw_torch.index.flat import FlatIndex  # noqa: E402
+from tpu_hnsw_torch.ops.bitops import BinaryFlatIndex  # noqa: E402
 
-__all__ = ["BlockHnswIndex", "FlatIndex", "HnswConfig", "Metric"]
+__all__ = ["BinaryFlatIndex", "BinaryHnswIndex", "BlockHnswIndex",
+           "FlatIndex", "HnswConfig", "Metric"]

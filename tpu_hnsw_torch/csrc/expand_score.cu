@@ -9,7 +9,8 @@
 // b = bids[q, j], the score of every row s of block b,
 //   L2:      max(q_sq[q] + blocks_sq[b, s] - 2 * dot, 0)
 //   IP/cos:  -dot
-//   +inf where block_ids[b, s] < 0 (dead or pad row),
+//   +inf where block_ids[b, s] < 0 (dead or pad row) or, when the filter
+//   mask is given, where allowed[b, s] is false (block.py:135-138, 205-209),
 // written to out[q, j, s]. dot is
 //   f32 rows:  f32 row . f32 query, f32 accumulation;
 //   bf16 rows: bf16 row . bf16-rounded query, f32 accumulation;
@@ -85,6 +86,7 @@ __global__ void __launch_bounds__(kThreads)
 expand_score_kernel(const uint8_t* __restrict__ blocks,
                     const float* __restrict__ blocks_sq,
                     const int* __restrict__ block_ids,
+                    const bool* __restrict__ allowed,
                     const uint8_t* __restrict__ q,
                     const float* __restrict__ q_sq,
                     const long long* __restrict__ bids,
@@ -142,7 +144,8 @@ expand_score_kernel(const uint8_t* __restrict__ blocks,
         dot = acc;
       }
       float sc;
-      if (block_ids[slot0 + row] < 0) {
+      if (block_ids[slot0 + row] < 0 ||
+          (allowed != nullptr && !allowed[slot0 + row])) {
         sc = INFINITY;
       } else if (l2) {
         // (q_sq + x_sq) - 2 dot, rounded op by op like the reference
@@ -159,7 +162,8 @@ expand_score_kernel(const uint8_t* __restrict__ blocks,
 
 template <int MODE, int WORDS>
 cudaError_t launch(const void* blocks, const float* blocks_sq,
-                   const int* block_ids, const void* q, const float* q_sq,
+                   const int* block_ids, const bool* allowed, const void* q,
+                   const float* q_sq,
                    const long long* bids, const float* q_scale,
                    const float* score_scale, float* out, long long n_blocks,
                    int Q, int p, int S, int row_bytes, int l2,
@@ -172,7 +176,7 @@ cudaError_t launch(const void* blocks, const float* blocks_sq,
   }
   const long long pairs = static_cast<long long>(Q) * p;
   kernel<<<static_cast<unsigned int>(pairs), kThreads, row_bytes, stream>>>(
-      static_cast<const uint8_t*>(blocks), blocks_sq, block_ids,
+      static_cast<const uint8_t*>(blocks), blocks_sq, block_ids, allowed,
       static_cast<const uint8_t*>(q), q_sq, bids, q_scale, score_scale, out,
       n_blocks, p, S, row_bytes, l2, lanes_per_row);
   return cudaGetLastError();
@@ -181,17 +185,19 @@ cudaError_t launch(const void* blocks, const float* blocks_sq,
 }  // namespace
 
 // mode: 0 f32, 1 bf16, 2 int8. words_per_chunk: 4 (16-byte loads; rows and
-// base 16-byte aligned) or 1 (4-byte loads). Returns a cudaError_t.
+// base 16-byte aligned) or 1 (4-byte loads). allowed: [B, S] bool filter
+// mask, or null for none. Returns a cudaError_t.
 extern "C" int expand_score_launch(
     int mode, int words_per_chunk, const void* blocks, const float* blocks_sq,
-    const int* block_ids, const void* q, const float* q_sq,
+    const int* block_ids, const bool* allowed, const void* q,
+    const float* q_sq,
     const long long* bids, const float* q_scale, const float* score_scale,
     float* out, long long n_blocks, int Q, int p, int S, int row_bytes,
     int l2, int lanes_per_row, void* stream) {
   if (static_cast<long long>(Q) * p == 0 || S == 0) return cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define EXPAND_LAUNCH(M, W)                                                   \
-  launch<M, W>(blocks, blocks_sq, block_ids, q, q_sq, bids, q_scale,          \
+  launch<M, W>(blocks, blocks_sq, block_ids, allowed, q, q_sq, bids, q_scale, \
                score_scale, out, n_blocks, Q, p, S, row_bytes, l2,            \
                lanes_per_row, st)
   cudaError_t err;

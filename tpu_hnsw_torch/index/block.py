@@ -10,15 +10,23 @@ per-block scales by default, or bf16); the best ``rerank_width`` rows per
 query are re-scored exactly in f32 from the stored blocks and the top-k
 returned. ``two_stage=False`` scores the stored blocks directly.
 
-Not ported yet (each raises ``NotImplementedError`` naming its roadmap
-item): graph routing over the centroid HNSW (B > EXACT_ROUTING_MAX),
-add/delete/compact and the spill tail, the filtered scan,
-search_iterative, save/load.
+Deletes tombstone rows in place; inserts go to a flat-scanned spill tail
+and are folded into blocks by ``compact()``. A filter mask over element
+ids is applied on the device, in the kernel, like a dead row. ``save`` /
+``load`` use the reference's on-disk layout, so an index saved by either
+package loads in the other.
+
+Not ported yet: graph routing over the centroid HNSW (B >
+EXACT_ROUTING_MAX; ROADMAP queue 1, slice 2), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
+import os
 import time
 
 import numpy as np
@@ -34,7 +42,10 @@ from tpu_hnsw_torch.parallel import kmeans as KM
 
 #: the kernel loads 16 bytes at a time; scoring-copy rows are padded to it
 ROW_ALIGN_BYTES = 16
-_NEXT_SLICE = "ROADMAP queue 1, slice 1 item 8 (mutation, filter, persistence)"
+_GRAPH_SLICE = "ROADMAP queue 1, slice 2 (graph engine)"
+# elements of a corpus-sized f32 temporary per step of the install-time
+# passes (norms, centroid sums, normalisation): 2^28 f32 is 1 GB
+_CHUNK_ELEMS = 1 << 28
 
 
 def _pow2(x: int) -> int:
@@ -74,13 +85,15 @@ def _slots_of(bids, sel, S: int):
 
 
 def _expand_blocks(blocks, blocks_sq, block_ids, q, q_sq, bids, *, k: int,
-                   metric: Metric):
+                   metric: Metric, allowed=None):
     """Single-stage expansion (block.py:106-145): score every row of each
     query's selected blocks from the stored blocks, return the top-k as
-    (scores ``[Q, k]`` ascending, ids ``[Q, k]``, -1 padded)."""
+    (scores ``[Q, k]`` ascending, ids ``[Q, k]``, -1 padded). ``allowed``
+    ``[B, S]`` bool masks filtered-out rows like dead ones."""
     Q, p = bids.shape
     S = blocks.shape[1]
-    sc = X.expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric)
+    sc = X.expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
+                        allowed=allowed)
     vals, sel = T.topk_smallest_fast(sc.reshape(Q, p * S), k)
     ids = block_ids.reshape(-1)[_slots_of(bids, sel, S)]
     return vals, torch.where(torch.isfinite(vals), ids, -1)
@@ -88,11 +101,13 @@ def _expand_blocks(blocks, blocks_sq, block_ids, q, q_sq, bids, *, k: int,
 
 def _expand_blocks_2stage(blocks_score, blocks_sq, block_ids, flat_exact, q,
                           q_sq, bids, *, k: int, rerank: int, metric: Metric,
-                          score_scale=None):
+                          score_scale=None, allowed=None):
     """Two-stage expansion (block.py:153-237): the kernel scores the
     selected blocks from the int8 (``score_scale`` given) or bf16 copy, the
     best ``rerank`` rows per query are re-scored exactly in f32 from
-    ``flat_exact [B*S, d]``, and the top-k is returned."""
+    ``flat_exact [B*S, d]``, and the top-k is returned. ``allowed`` masks
+    stage 1 in the kernel and stage 2 again: when fewer than ``rerank``
+    allowed rows exist, top-r still hands back disallowed positions."""
     Q, p = bids.shape
     S, dp = blocks_score.shape[1], blocks_score.shape[2]
     qp = _pad_cols(q, dp)  # zero columns change neither dots nor norms
@@ -100,10 +115,10 @@ def _expand_blocks_2stage(blocks_score, blocks_sq, block_ids, flat_exact, q,
         q8, q_scl = _quantize_rows(qp)
         sc = X.expand_score(blocks_score, blocks_sq, block_ids, qp, q_sq,
                             bids, metric, q8=q8, q_scale=q_scl,
-                            score_scale=score_scale)
+                            score_scale=score_scale, allowed=allowed)
     else:
         sc = X.expand_score(blocks_score, blocks_sq, block_ids, qp, q_sq,
-                            bids, metric)
+                            bids, metric, allowed=allowed)
     r = min(rerank, p * S)
     _, sel = T.topk_smallest_fast(sc.reshape(Q, p * S), r)
     slots = _slots_of(bids, sel, S)
@@ -115,40 +130,75 @@ def _expand_blocks_2stage(blocks_score, blocks_sq, block_ids, flat_exact, q,
         sc2 = torch.clamp_min(q_sq[:, None] + vsq - 2.0 * dots2, 0.0)
     else:
         sc2 = -dots2
-    sc2 = torch.where(cand_ids < 0, torch.inf, sc2)
+    dead = cand_ids < 0
+    if allowed is not None:
+        dead |= ~allowed.reshape(-1)[slots]
+    sc2 = torch.where(dead, torch.inf, sc2)
     vals, sel2 = T.topk_smallest(sc2, k)
     ids = torch.gather(cand_ids, 1, sel2)
     return vals, torch.where(torch.isfinite(vals), ids, -1)
 
 
-def _route_exact(centroids, c_sq, q, q_sq, *, p: int, metric: Metric):
-    """Exact top-p blocks per query (block.py:287-306): one ``[Q, B]``
-    GEMM (a library GEMM, in f32) + top-p."""
+def _centroid_scores(centroids, c_sq, q, q_sq, metric: Metric):
+    """``[Q, B]`` query-centroid scores: one f32 GEMM (a library GEMM)."""
     dots = q.to(centroids.dtype).float() @ centroids.float().T
     if metric is Metric.L2:
-        sc = q_sq[:, None] + c_sq[None, :] - 2.0 * dots
+        return q_sq[:, None] + c_sq[None, :] - 2.0 * dots
+    return -dots
+
+
+def _route_exact(centroids, c_sq, q, q_sq, *, p: int, metric: Metric):
+    """Exact top-p blocks per query (block.py:287-306)."""
+    return T.topk_smallest_fast(
+        _centroid_scores(centroids, c_sq, q, q_sq, metric), p)[1]
+
+
+def _route_exact_sorted(centroids, c_sq, q, q_sq, *, p: int, metric: Metric):
+    """Fully sorted top-p block ranking (block.py:314-333): prefix-consistent,
+    so iterative scans expand column slices ``[p_prev, p)`` of one ranking."""
+    return T.topk_smallest(
+        _centroid_scores(centroids, c_sq, q, q_sq, metric), p)[1]
+
+
+def _scan_tail(tail, tail_sq, tail_ids, q, q_sq, allowed_tail=None, *,
+               k: int, metric: Metric):
+    """Exact scan of the spill tail ``[T, d]`` (block.py:337-357): raw scores
+    ``[Q, k]`` ascending and ids, +inf / -1 padded past the live rows."""
+    dots = q.to(tail.dtype).float() @ tail.float().T
+    if metric is Metric.L2:
+        sc = torch.clamp_min(q_sq[:, None] + tail_sq[None, :] - 2.0 * dots,
+                             0.0)
     else:
         sc = -dots
-    return T.topk_smallest_fast(sc, p)[1]
+    dead = tail_ids < 0
+    if allowed_tail is not None:
+        dead |= ~allowed_tail
+    sc = torch.where(dead[None, :], torch.inf, sc)
+    kk = min(k, tail.shape[0])
+    vals, sel = T.topk_smallest(sc, kk)
+    ids = torch.where(torch.isfinite(vals), tail_ids[sel], -1)
+    if kk < k:
+        vals = F.pad(vals, (0, k - kk), value=torch.inf)
+        ids = F.pad(ids, (0, k - kk), value=-1)
+    return vals, ids
 
 
 def _serve_exact(blocks, blocks_score, blocks_sq, block_ids, centroids, c_sq,
-                 q, score_scale=None, *, k: int, probes: int, rerank: int,
-                 metric: Metric, two_stage: bool):
+                 q, score_scale=None, allowed=None, *, k: int, probes: int,
+                 rerank: int, metric: Metric, two_stage: bool):
     """The exact-routing serving step (block.py:245-284): query norms ->
-    centroid routing -> block expansion (+ rerank) -> operator units."""
+    centroid routing -> block expansion (+ rerank). Raw scores out."""
     q = q.float()
     q_sq = D.squared_norms(q)
     bids = _route_exact(centroids, c_sq, q, q_sq, p=probes, metric=metric)
     if two_stage:
-        sc, ids = _expand_blocks_2stage(
+        return _expand_blocks_2stage(
             blocks_score, blocks_sq, block_ids,
             blocks.reshape(-1, blocks.shape[-1]), q, q_sq, bids, k=k,
-            rerank=rerank, metric=metric, score_scale=score_scale)
-    else:
-        sc, ids = _expand_blocks(blocks, blocks_sq, block_ids, q, q_sq, bids,
-                                 k=k, metric=metric)
-    return D.score_to_distance(sc, metric), ids
+            rerank=rerank, metric=metric, score_scale=score_scale,
+            allowed=allowed)
+    return _expand_blocks(blocks, blocks_sq, block_ids, q, q_sq, bids, k=k,
+                          metric=metric, allowed=allowed)
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +345,79 @@ def _make_score_copy(blocks: torch.Tensor, score_dtype: str = "int8"):
     return _pad_cols(blocks.to(torch.bfloat16), dp), None
 
 
+def _chunk(elems_per_item: int) -> int:
+    """Items per step so a step's f32 temporaries hold ~_CHUNK_ELEMS."""
+    return max(1, _CHUNK_ELEMS // max(elems_per_item, 1))
+
+
+def _gather_blocks(xt: torch.Tensor, block_ids: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``[B, S]`` ids (-1 pad) -> ``[B, S, d]`` rows of ``xt`` in ``dtype``,
+    pad rows zero (block.py:63-69), gathered in steps so no corpus-sized
+    temporary exists beside the output."""
+    B, S = block_ids.shape
+    d = xt.shape[1]
+    flat = block_ids.reshape(-1)
+    out = torch.empty((B * S, d), dtype=dtype, device=xt.device)
+    step = _chunk(d)
+    for s in range(0, B * S, step):
+        ids = flat[s:s + step]
+        out[s:s + step] = xt.index_select(0, torch.clamp_min(ids, 0)).to(
+            dtype).mul_((ids >= 0)[:, None])
+    return out.reshape(B, S, d)
+
+
+def _block_stats(blocks: torch.Tensor):
+    """(row squared norms ``[B, S]``, row sums ``[B, d]``) in f32, in steps
+    of blocks (block.py:72-80 fuse them for the same reason: an f32 copy
+    of a bf16 store is 6 GB at 1M x 1536)."""
+    B, S, d = blocks.shape
+    sq = torch.empty((B, S), dtype=torch.float32, device=blocks.device)
+    rowsum = torch.empty((B, d), dtype=torch.float32, device=blocks.device)
+    step = _chunk(S * d)
+    for s in range(0, B, step):
+        bf = blocks[s:s + step].float()
+        sq[s:s + step] = (bf * bf).sum(-1)
+        rowsum[s:s + step] = bf.sum(1)
+    return sq, rowsum
+
+
+def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
+    """``l2_normalize`` keeping the dtype, in steps of rows (block.py:83-90)."""
+    out = torch.empty_like(x)
+    step = _chunk(x.shape[1])
+    for s in range(0, x.shape[0], step):
+        out[s:s + step] = D.l2_normalize(x[s:s + step])
+    return out
+
+
+def _all_finite(x: torch.Tensor) -> bool:
+    """No NaN or infinity, checked in steps of rows (block.py:93-98)."""
+    ok = torch.ones((), dtype=torch.bool, device=x.device)
+    step = _chunk(x.shape[1])
+    for s in range(0, x.shape[0], step):
+        ok &= torch.isfinite(x[s:s + step]).all()
+    return bool(ok)
+
+
+def _numpy_of(t: torch.Tensor) -> np.ndarray:
+    """Tensor -> host array; bf16 comes back as its raw uint16 bits (the
+    reference's on-disk form)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def _write_blob(path: str, arr: np.ndarray) -> None:
+    """Raw bytes of ``arr`` to ``path`` (``io/native.py:112-125``'s format),
+    raising unless the whole array reached the file."""
+    arr = np.ascontiguousarray(arr)
+    arr.tofile(path)
+    if os.path.getsize(path) != arr.nbytes:
+        raise OSError(f"short write: {path} holds {os.path.getsize(path)} "
+                      f"of {arr.nbytes} bytes")
+
+
 def _tensor(a, device) -> torch.Tensor:
     """numpy array (including ml_dtypes bfloat16) -> tensor on ``device``."""
     a = np.ascontiguousarray(a)
@@ -329,8 +452,7 @@ class BlockHnswIndex:
         if routing not in ("auto", "exact", "graph"):
             raise ValueError("routing must be auto|exact|graph")
         if routing == "graph":
-            raise NotImplementedError(
-                "graph routing: ROADMAP queue 1, slice 2 (graph engine)")
+            raise NotImplementedError(f"graph routing: {_GRAPH_SLICE}")
         if config.metric not in (Metric.L2, Metric.IP, Metric.COSINE):
             raise ValueError(f"{config.metric} unsupported by BlockHnswIndex")
         self.cfg = config
@@ -343,21 +465,35 @@ class BlockHnswIndex:
         # packing slack: at exact capacity the balanced packer strands rows
         # in arbitrary leftover blocks, a probe-independent recall floor
         self.block_slack = float(block_slack)
-        self.n = 0
+        self.n = 0                # live block rows (deleted excluded)
+        self.n_total = 0          # id space placed in blocks (tail excluded)
         self.n_blocks = 0
         self.blocks = None        # [B, S, d] storage dtype
         self.blocks_sq = None     # [B, S] f32
-        self.block_ids = None     # [B, S] int32, -1 = pad
+        self.block_ids = None     # [B, S] int32, -1 = dead/pad
         self.blocks_score = None  # [B, S, dp] int8 | bf16 scoring copy
         self.score_scale = None   # [B] f32 per-block dequant (int8 copy)
         self.centroids = None     # [B, d] storage dtype
         self.centroids_sq = None  # [B] f32
         self.build_stats = {}
+        # host id -> flat slot (block*S + s), -2 in the tail, -1 deleted;
+        # made lazily (_ensure_slot): only delete/add/save need it
+        self._slot_of = None
+        self._filter_cache = None
+        self._reset_tail()
+
+    def _reset_tail(self):
+        """Empty spill tail (inserts since the last compact)."""
+        self.tail_n = 0           # high-water mark (next free tail slot)
+        self.tail_live = 0        # live (non-deleted) tail rows
+        self.tail = None          # [cap, d] storage dtype
+        self.tail_sq = None       # [cap] f32
+        self.tail_ids = None      # [cap] int32, -1 = pad/deleted
 
     # ------------------------------------------------------------------ util
     @property
     def size(self) -> int:
-        return self.n
+        return self.n + self.tail_live
 
     @property
     def dtype(self) -> torch.dtype:
@@ -409,10 +545,10 @@ class BlockHnswIndex:
                     f"expected {self.cfg.dim} dimensions, not "
                     f"{data.shape[-1] if data.ndim else 0}")
             xt = data.to(self.device, self.dtype)
-            if not bool(torch.isfinite(xt).all()):
+            if not _all_finite(xt):
                 raise ValueError("NaN or infinity values are not allowed")
             if self.cfg.metric.needs_normalized:
-                xt = D.l2_normalize(xt)
+                xt = _normalize_rows(xt)
         else:
             xt = self._upload(self._prep(data))
         n = int(xt.shape[0])
@@ -442,13 +578,14 @@ class BlockHnswIndex:
         return self
 
     def _pack(self, xt: torch.Tensor, kmeans_iters: int) -> torch.Tensor:
-        """Cluster + capacity-balanced packing: ``[B, S]`` int32 ids."""
+        """Cluster + capacity-balanced packing: ``[B, S]`` int32 row
+        positions in ``xt``."""
         n = xt.shape[0]
         S = self.block_size
         B = max(1, math.ceil(n * self.block_slack / S))
         if self.routing == "auto" and B > self.EXACT_ROUTING_MAX:
             raise NotImplementedError(
-                f"{B} blocks need graph routing: ROADMAP queue 1, slice 2")
+                f"{B} blocks need graph routing: {_GRAPH_SLICE}")
         tk = time.perf_counter()
         if B == 1:
             assign = torch.zeros(n, dtype=torch.int64, device=xt.device)
@@ -467,25 +604,37 @@ class BlockHnswIndex:
         }
         return _pack_block_ids_device(assign, S=S, B=B)
 
-    def _install_blocks(self, block_ids: torch.Tensor, xt: torch.Tensor):
-        """Gather the packed blocks, their norms, centroids and scoring copy."""
-        S = self.block_size
-        B = block_ids.shape[0]
-        valid = (block_ids >= 0).reshape(-1, 1)
-        # gather + mask in place: no second corpus-sized temporary
-        blocks = xt.index_select(0, torch.clamp_min(block_ids, 0).reshape(-1))
-        blocks = blocks.to(self.dtype).mul_(valid).reshape(B, S, -1)
-        counts = torch.clamp_min(valid.reshape(B, S).float().sum(1), 1.0)
-        cents = blocks.float().sum(1) / counts[:, None]
+    def _install_blocks(self, block_ids: torch.Tensor, xt: torch.Tensor,
+                        ids: torch.Tensor | None = None):
+        """Gather the packed blocks, their norms, centroids and scoring
+        copy. ``block_ids`` holds row positions in ``xt``; ``ids`` (when
+        given) maps a position to the element id that is stored."""
+        blocks = _gather_blocks(xt, block_ids, self.dtype)
+        if ids is not None:
+            block_ids = torch.where(
+                block_ids >= 0, ids[torch.clamp_min(block_ids, 0).long()],
+                -1).to(torch.int32)
+        self._set_blocks(blocks, block_ids)
+        self.n = int(xt.shape[0])
+        self.n_total = self.n
+        self._slot_of = None
+        self._reset_tail()
+
+    def _set_blocks(self, blocks: torch.Tensor, block_ids: torch.Tensor):
+        """Install blocks and derive norms, scoring copy and centroids (the
+        mean of each block's rows over its live count; block.py:1050-1060,
+        1681-1689)."""
         self.blocks = blocks
-        self.blocks_sq = D.squared_norms(blocks)
+        self.blocks_sq, rowsum = _block_stats(blocks)
         self.blocks_score, self.score_scale = _make_score_copy(
             blocks, self.score_dtype)
         self.block_ids = block_ids
+        counts = torch.clamp_min((block_ids >= 0).float().sum(1), 1.0)
+        cents = rowsum / counts[:, None]
         self.centroids = cents.to(self.dtype)
         self.centroids_sq = (cents * cents).sum(-1)
-        self.n_blocks = B
-        self.n = int(xt.shape[0])
+        self.n_blocks = int(blocks.shape[0])
+        self._filter_cache = None
 
     @classmethod
     def from_state(cls, cfg: HnswConfig, state: dict, block_size: int = 256,
@@ -510,23 +659,15 @@ class BlockHnswIndex:
         idx.centroids = _tensor(state["centroids"][:B], dev)
         idx.centroids_sq = _tensor(state["centroids_sq"][:B], dev)
         idx.n = int(state["n"])
+        idx.n_total = int(state.get("n_total",
+                                    int(state["block_ids"].max()) + 1))
         idx.n_blocks = B
         return idx
 
     # ---------------------------------------------------------------- search
-    def search_device(self, queries, k: int = 10, ef_search: int = 40,
-                      probes: int | None = None, filter_mask=None):
-        """Device-resident search. Returns (distances, ids) tensors in
-        pgvector operator units; missing ids are -1. A tensor of queries
-        is not validated (finite values are the caller's job)."""
-        validate_ef_search(max(ef_search, 1))
-        if filter_mask is not None:
-            raise NotImplementedError(f"filter_mask: {_NEXT_SLICE}")
-        if self.n_blocks == 0:
-            raise ValueError("index is empty")
-        if probes is None:
-            probes = self.probes_for_ef(max(ef_search, k))
-        probes = max(1, min(probes, self.n_blocks))
+    def _queries(self, queries) -> torch.Tensor:
+        """Queries -> f32 ``[Q, d]`` on the device (normalised for cosine).
+        A tensor is not validated (finite values are the caller's job)."""
         if isinstance(queries, torch.Tensor):
             qt = queries.to(self.device, torch.float32).contiguous()
             if qt.ndim == 1:
@@ -536,19 +677,96 @@ class BlockHnswIndex:
                     f"expected {self.cfg.dim} dimensions, not {qt.shape[1]}")
             if self.cfg.metric.needs_normalized:
                 qt = D.l2_normalize(qt)
+            return qt
+        return self._upload(self._prep(queries))
+
+    def _filter_device(self, filter_mask):
+        """(allowed slots ``[B, S]``, allowed tail rows ``[tail_n]`` | None)
+        bool masks from a per-id filter: a bool mask over element ids (array
+        or tensor) or a list of ids (block.py:1150-1181). Cached for the
+        same mask object until the index changes; the cache holds the
+        object, so a new mask can never reuse a dead one's cache entry."""
+        cache = self._filter_cache
+        if cache is not None and cache[0] is filter_mask:
+            return cache[1], cache[2]
+        hi = max(self.n_total + self.tail_n, 1)
+        dev = self.device
+        full = torch.zeros(hi, dtype=torch.bool, device=dev)
+        if isinstance(filter_mask, torch.Tensor) \
+                and filter_mask.dtype == torch.bool:
+            m = filter_mask.reshape(-1).to(dev)
+            ln = min(m.shape[0], hi)
+            full[:ln] = m[:ln]
         else:
-            qt = self._upload(self._prep(queries))
+            m = np.asarray(filter_mask.cpu() if isinstance(
+                filter_mask, torch.Tensor) else filter_mask).reshape(-1)
+            if m.dtype == bool:
+                ln = min(m.shape[0], hi)
+                full[:ln] = torch.from_numpy(m[:ln]).to(dev)
+            else:
+                ids = m.astype(np.int64)
+                ids = ids[(ids >= 0) & (ids < hi)]
+                full[torch.from_numpy(ids).to(dev)] = True
+        slots = None
+        if self.block_ids is not None:
+            bi = self.block_ids
+            slots = full[torch.clamp_min(bi, 0).long()] & (bi >= 0)
+        tailm = None
+        if self.tail_n:
+            ti = self.tail_ids[:self.tail_n]
+            tailm = full[torch.clamp_min(ti, 0).long()] & (ti >= 0)
+        self._filter_cache = (filter_mask, slots, tailm)
+        return slots, tailm
+
+    def _tail_scores(self, qt, q_sq, k: int, allowed_tail=None):
+        n = self.tail_n
+        return _scan_tail(self.tail[:n], self.tail_sq[:n],
+                          self.tail_ids[:n], qt, q_sq, allowed_tail, k=k,
+                          metric=self.cfg.metric)
+
+    def search_device(self, queries, k: int = 10, ef_search: int = 40,
+                      probes: int | None = None, filter_mask=None):
+        """Device-resident search. Returns (distances, ids) tensors in
+        pgvector operator units; missing ids are -1. A tensor of queries
+        is not validated (finite values are the caller's job).
+
+        ``filter_mask`` (bool mask or id list over element ids) is applied
+        on the device: disallowed rows score +inf in the kernel, like dead
+        rows. Selective filters want wider probes; see
+        :meth:`search_iterative` for automatic widening."""
+        validate_ef_search(max(ef_search, 1))
+        if self.n_blocks == 0 and not self.tail_n:
+            raise ValueError("index is empty")
+        if probes is None:
+            probes = self.probes_for_ef(max(ef_search, k))
+        probes = max(1, min(probes, max(self.n_blocks, 1)))
+        qt = self._queries(queries)
+        allowed_slots = allowed_tail = None
+        if filter_mask is not None:
+            allowed_slots, allowed_tail = self._filter_device(filter_mask)
+        metric = self.cfg.metric
+        if self.n_blocks == 0:  # every row arrived through the spill tail
+            sc, ids = self._tail_scores(qt, D.squared_norms(qt), k,
+                                        allowed_tail)
+            return D.score_to_distance(sc, metric), ids
         if (probes >= self.n_blocks
                 and self.n_blocks > self.EXHAUSTIVE_SCAN_MIN_BLOCKS):
-            sc, ids = self._scan_all(qt, k)
-            return D.score_to_distance(sc, self.cfg.metric), ids
-        return _serve_exact(
-            self.blocks, self.blocks_score, self.blocks_sq, self.block_ids,
-            self.centroids, self.centroids_sq, qt, self.score_scale, k=k,
-            probes=probes, rerank=max(self.rerank_width, k),
-            metric=self.cfg.metric, two_stage=self.two_stage)
+            sc, ids = self._scan_all(qt, k, allowed_slots)
+        else:
+            sc, ids = _serve_exact(
+                self.blocks, self.blocks_score, self.blocks_sq,
+                self.block_ids, self.centroids, self.centroids_sq, qt,
+                self.score_scale, allowed_slots, k=k, probes=probes,
+                rerank=max(self.rerank_width, k), metric=metric,
+                two_stage=self.two_stage)
+        if self.tail_n:
+            t_sc, t_ids = self._tail_scores(qt, D.squared_norms(qt), k,
+                                            allowed_tail)
+            sc, sel = T.topk_smallest(torch.cat([sc, t_sc], 1), k)
+            ids = torch.gather(torch.cat([ids, t_ids], 1), 1, sel)
+        return D.score_to_distance(sc, metric), ids
 
-    def _scan_all(self, qt, k: int):
+    def _scan_all(self, qt, k: int, allowed_slots=None):
         """Exhaustive scan of the blocked store for ``probes >= n_blocks``
         (block.py:1292-1326): a streamed scan of the bf16 copy (or of the
         stored blocks when the copy is int8, whose per-block scales the
@@ -562,6 +780,8 @@ class BlockHnswIndex:
         dp = scan_src.shape[2]
         cand = max(4 * k, self.rerank_width)
         valid = (self.block_ids >= 0).reshape(-1)
+        if allowed_slots is not None:
+            valid = valid & allowed_slots.reshape(-1)
         _, pos = FL._stream_search(
             _pad_cols(qt, dp), scan_src.reshape(-1, dp),
             self.blocks_sq.reshape(-1), valid, cand, self.cfg.metric,
@@ -585,24 +805,304 @@ class BlockHnswIndex:
             return i.cpu().numpy()
         return d.cpu().numpy(), i.cpu().numpy()
 
-    def search_iterative(self, *args, **kwargs):
-        raise NotImplementedError(f"search_iterative: {_NEXT_SLICE}")
+    def search_iterative(self, queries, k: int = 10, ef_search: int = 40,
+                         predicate=None, max_probes: int = 0):
+        """Iterative scan (upstream ``hnsw.iterative_scan``; block.py:
+        1338-1459): when a filter rejects results, widen the probe set. The
+        fully sorted centroid ranking is prefix-consistent, so an
+        unfiltered round expands only the blocks ranked ``[p_prev, p)`` and
+        accumulates (a resume). A filtered round re-expands the whole
+        prefix ``[0, p)`` at a doubled retained width W, rescans the spill
+        tail at that width too (the reference reads it once, at the first
+        W), and a filtered query finalises only when its k passing results
+        survive one further widening.
 
-    def add(self, data):
-        raise NotImplementedError(f"add (spill tail): {_NEXT_SLICE}")
+        ``predicate(ids) -> bool mask`` runs on the host over an ``[nq, m]``
+        int64 id array; ``max_probes`` (default: all blocks) bounds the
+        scan. Returns numpy (distances, ids), inf / -1 padded when fewer
+        than k pass."""
+        validate_ef_search(max(ef_search, 1))
+        if self.n_blocks == 0:
+            raise ValueError("index is empty")
+        max_probes = min(max_probes or self.n_blocks, self.n_blocks)
+        S = self.block_size
+        metric = self.cfg.metric
+        qt = self._queries(queries)
+        nq = qt.shape[0]
+        q_sq = D.squared_norms(qt)
+        W = max(4 * k, self.rerank_width)
+        bids_full = _route_exact_sorted(
+            self.centroids, self.centroids_sq, qt, q_sq, p=max_probes,
+            metric=metric)
 
-    def delete(self, ids):
-        raise NotImplementedError(f"delete: {_NEXT_SLICE}")
+        def tail_pool(width: int):
+            if not self.tail_n:
+                return (np.zeros((nq, 0), np.float32),
+                        np.zeros((nq, 0), np.int64))
+            sc, ids = self._tail_scores(qt, q_sq, min(width, self.tail_n))
+            return sc.cpu().numpy(), ids.cpu().numpy().astype(np.int64)
 
-    def compact(self):
-        raise NotImplementedError(f"compact: {_NEXT_SLICE}")
+        filtered = predicate is not None
+        acc_d, acc_i = tail_pool(W)
+        out_d = np.full((nq, k), np.inf, np.float32)
+        out_i = np.full((nq, k), -1, np.int64)
+        done = np.zeros(nq, bool)
+        confirm = np.zeros(nq, bool)
+        p_prev, p = 0, min(self.probes_for_ef(max(ef_search, k)), max_probes)
+        while True:
+            lo = 0 if filtered else p_prev
+            bids = bids_full[:, lo:p].contiguous()
+            kk = min(W, (p - lo) * S)
+            if self.two_stage:
+                sc, ids = _expand_blocks_2stage(
+                    self.blocks_score, self.blocks_sq, self.block_ids,
+                    self.blocks.reshape(-1, self.cfg.dim), qt, q_sq, bids,
+                    k=kk, rerank=max(self.rerank_width, kk), metric=metric,
+                    score_scale=self.score_scale)
+            else:
+                sc, ids = _expand_blocks(
+                    self.blocks, self.blocks_sq, self.block_ids, qt, q_sq,
+                    bids, k=kk, metric=metric)
+            if filtered:  # fresh pool: the prefix was re-expanded in full
+                acc_d, acc_i = tail_pool(W)
+            acc_d = np.concatenate([acc_d, sc.cpu().numpy()], axis=1)
+            acc_i = np.concatenate(
+                [acc_i, ids.cpu().numpy().astype(np.int64)], axis=1)
+            order = np.argsort(acc_d, axis=1, kind="stable")
+            acc_d = np.take_along_axis(acc_d, order, axis=1)
+            acc_i = np.take_along_axis(acc_i, order, axis=1)
+            mask = np.asarray(predicate(acc_i), bool) if filtered \
+                else acc_i >= 0
+            mask &= acc_i >= 0
+            rank = np.cumsum(mask, axis=1) - 1
+            satisfied = mask.sum(1) >= k
+            final = ~done & ((p >= max_probes)
+                             | (satisfied & (confirm | (not filtered))))
+            r, c = np.nonzero(mask & (rank < k) & final[:, None])
+            out_d[r, rank[r, c]] = acc_d[r, c]
+            out_i[r, rank[r, c]] = acc_i[r, c]
+            confirm |= ~done & ~final & satisfied
+            done |= final
+            if done.all() or p >= max_probes:
+                break
+            p_prev, p = p, min(2 * p, max_probes)
+            if filtered:
+                W = min(2 * W, max_probes * S)
+        out_d = D.score_to_distance(torch.from_numpy(out_d), metric).numpy()
+        return np.where(out_i >= 0, out_d, np.inf), out_i
 
-    def save(self, path: str):
-        raise NotImplementedError(f"save: {_NEXT_SLICE}")
+    # ------------------------------------------------------------ add/delete
+    def _ensure_slot(self) -> None:
+        """Make the host id -> slot map from ``block_ids`` and the tail
+        (block.py:1462-1483)."""
+        if self._slot_of is not None or (self.block_ids is None
+                                         and not self.tail_n):
+            return
+        flat = (self.block_ids.reshape(-1).cpu().numpy()
+                if self.block_ids is not None else np.zeros(0, np.int32))
+        live = flat >= 0
+        hi = int(flat[live].max()) + 1 if live.any() else 0
+        t_ids = None
+        if self.tail_n:
+            t_ids = self.tail_ids[:self.tail_n].cpu().numpy()
+            t_ids = t_ids[t_ids >= 0]
+            if t_ids.size:
+                hi = max(hi, int(t_ids.max()) + 1)
+        slot = np.full(hi, -1, np.int64)
+        slot[flat[live]] = np.arange(flat.size, dtype=np.int64)[live]
+        if t_ids is not None and t_ids.size:
+            slot[t_ids] = -2  # in the tail
+        self._slot_of = slot
+
+    def add(self, data) -> np.ndarray:
+        """Insert vectors into the spill tail (hnswinsert analogue for the
+        blocked layout; :meth:`compact` folds them into blocks). Returns
+        their ids, continuing the id space."""
+        x = self._prep(data)
+        count = x.shape[0]
+        start = self.n_total + self.tail_n
+        ids = np.arange(start, start + count, dtype=np.int32)
+        if count == 0:
+            return ids
+        need = self.tail_n + count
+        cap = 0 if self.tail is None else self.tail.shape[0]
+        if need > cap:
+            new_cap = _pow2(max(need, 1024))
+            dev = self.device
+            tail = torch.zeros((new_cap, self.cfg.dim), dtype=self.dtype,
+                               device=dev)
+            tail_sq = torch.zeros(new_cap, dtype=torch.float32, device=dev)
+            tail_ids = torch.full((new_cap,), -1, dtype=torch.int32,
+                                  device=dev)
+            if self.tail_n:
+                tail[:self.tail_n] = self.tail[:self.tail_n]
+                tail_sq[:self.tail_n] = self.tail_sq[:self.tail_n]
+                tail_ids[:self.tail_n] = self.tail_ids[:self.tail_n]
+            self.tail, self.tail_sq, self.tail_ids = tail, tail_sq, tail_ids
+        xt = self._upload(x).to(self.dtype)
+        self.tail[self.tail_n:need] = xt
+        self.tail_sq[self.tail_n:need] = D.squared_norms(xt)
+        self.tail_ids[self.tail_n:need] = torch.from_numpy(ids).to(
+            self.device)
+        self.tail_n = need
+        self.tail_live += count
+        self._filter_cache = None
+        self._ensure_slot()
+        if self._slot_of is None or len(self._slot_of) < ids[-1] + 1:
+            grown = np.full(ids[-1] + 1, -1, np.int64)
+            if self._slot_of is not None:
+                grown[:len(self._slot_of)] = self._slot_of
+            self._slot_of = grown
+        self._slot_of[ids] = -2  # in the tail
+        return ids
+
+    def delete(self, ids) -> None:
+        """Tombstone rows (hnswbulkdelete analogue): their slots' ids become
+        -1 and they never score again. Unknown or repeated ids are
+        ignored."""
+        ids = np.unique(np.asarray(ids, np.int64).reshape(-1))
+        self._ensure_slot()
+        if self._slot_of is None:  # nothing built or added yet
+            return
+        ids = ids[(ids >= 0) & (ids < len(self._slot_of))]
+        slots = self._slot_of[ids]
+        dev = self.device
+        blk = slots[slots >= 0]
+        if blk.size:
+            self.block_ids = self.block_ids.reshape(-1).index_put(
+                (torch.from_numpy(blk).to(dev),),
+                torch.tensor(-1, dtype=torch.int32, device=dev),
+            ).reshape(self.block_ids.shape)
+            self.n -= int(blk.size)
+        in_tail = ids[slots == -2]
+        if in_tail.size and self.tail_n:
+            kill = torch.isin(self.tail_ids,
+                              torch.from_numpy(in_tail).to(dev))
+            self.tail_ids = torch.where(kill, -1, self.tail_ids)
+            self.tail_live -= int(kill.sum())
+        self._slot_of[ids] = -1
+        self._filter_cache = None
+
+    def compact(self) -> None:
+        """Re-cluster blocks + tail into a fresh packed layout (vacuum
+        analogue): dead rows are dropped, tail rows are placed into blocks,
+        centroids are rebuilt; ids keep their meaning. The id space never
+        shrinks (the reference restarts it after the largest live id, so
+        deleted top ids were handed out again)."""
+        live_ids, live_vecs = self._export_live()
+        if live_ids.numel() == 0:
+            raise ValueError("cannot compact an index with every row deleted")
+        id_space = self.n_total + self.tail_n
+        block_ids = self._pack(live_vecs, kmeans_iters=5)
+        self._install_blocks(block_ids, live_vecs, ids=live_ids)
+        self.n_total = id_space
+
+    def _export_live(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(ids int64, vectors in the storage dtype) of every live row,
+        blocks then tail, on the device. ``_pack`` and ``_install_blocks``
+        widen them to f32 in steps, so no corpus-sized f32 copy exists."""
+        d = self.cfg.dim
+        ids, vecs = [], []
+        if self.block_ids is not None:
+            bi = self.block_ids.reshape(-1)
+            live = bi >= 0
+            ids.append(bi[live].long())
+            vecs.append(self.blocks.reshape(-1, d)[live])
+        if self.tail_n:
+            ti = self.tail_ids[:self.tail_n]
+            tl = ti >= 0
+            ids.append(ti[tl].long())
+            vecs.append(self.tail[:self.tail_n][tl])
+        if not ids:
+            return (torch.zeros(0, dtype=torch.int64, device=self.device),
+                    torch.zeros((0, d), dtype=self.dtype, device=self.device))
+        return torch.cat(ids), torch.cat(vecs)
+
+    # ----------------------------------------------------------- persistence
+    def save(self, path: str) -> None:
+        """Write the reference's layout (block.py:1617-1659): raw
+        ``blocks.bin`` (bf16 as uint16), ``blocks.npz`` (block_ids,
+        slot_of), ``meta.json`` and, with a spill tail, ``tail.npz``.
+        ``meta.json`` also holds ``block_slack`` and ``score_dtype``, which
+        the reference does not persist (and ignores when it loads)."""
+        os.makedirs(path, exist_ok=True)
+        self._ensure_slot()
+        S, d = self.block_size, self.cfg.dim
+        if self.blocks is not None:
+            blocks = _numpy_of(self.blocks)
+            block_ids = self.block_ids.cpu().numpy()
+        else:
+            blocks = np.zeros((0, S, d), np.uint16 if self.dtype
+                              == torch.bfloat16 else np.float32)
+            block_ids = np.zeros((0, S), np.int32)
+        _write_blob(os.path.join(path, "blocks.bin"), blocks)
+        np.savez(os.path.join(path, "blocks.npz"), block_ids=block_ids,
+                 slot_of=self._slot_of if self._slot_of is not None
+                 else np.zeros(0, np.int64))
+        meta = {
+            "config": {**dataclasses.asdict(self.cfg),
+                       "metric": self.cfg.metric.value},
+            "block_size": S,
+            "routing": self.routing,
+            "n": self.n,
+            "n_total": self.n_total,
+            "n_blocks": self.n_blocks,
+            "blocks_bin": {"dtype": str(blocks.dtype),
+                           "shape": list(blocks.shape)},
+            "block_slack": self.block_slack,
+            "score_dtype": self.score_dtype,
+        }
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if self.tail_n:
+            np.savez(os.path.join(path, "tail.npz"),
+                     tail=self.tail.float().cpu().numpy(),
+                     tail_ids=self.tail_ids.cpu().numpy(),
+                     tail_n=self.tail_n)
 
     @classmethod
-    def load(cls, path: str):
-        raise NotImplementedError(f"load: {_NEXT_SLICE}")
+    def load(cls, path: str, device=None) -> "BlockHnswIndex":
+        """Read a directory written by :meth:`save` or by ``tpu_hnsw``
+        (block.py:1661-1706): norms, scoring copy and centroids are derived
+        again from the blocks. ``block_slack`` defaults to 1.05 where the
+        directory does not hold it."""
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        if os.path.exists(os.path.join(path, "centroid_graph")):
+            raise NotImplementedError(
+                f"loading a centroid graph: {_GRAPH_SLICE}")
+        c = dict(meta["config"])
+        c["metric"] = Metric(c["metric"])
+        idx = cls(HnswConfig(**c), block_size=meta["block_size"],
+                  routing=meta["routing"],
+                  block_slack=meta.get("block_slack", 1.05), device=device)
+        idx.score_dtype = meta.get("score_dtype", "int8")
+        z = np.load(os.path.join(path, "blocks.npz"))
+        bb = meta.get("blocks_bin")
+        if bb is not None:
+            raw = np.fromfile(os.path.join(path, "blocks.bin"),
+                              np.dtype(bb["dtype"])).reshape(bb["shape"])
+        else:  # the reference's older layout: blocks inside the npz
+            raw = z["blocks"]
+        if raw.dtype == np.uint16:
+            blocks = torch.from_numpy(raw.view(np.int16)).view(
+                torch.bfloat16).to(idx.device)
+        else:
+            blocks = torch.from_numpy(raw).to(idx.device, idx.dtype)
+        if blocks.shape[0]:
+            idx._set_blocks(blocks, _tensor(z["block_ids"], idx.device))
+        idx._slot_of = z["slot_of"]
+        idx.n = meta["n"]
+        idx.n_total = meta["n_total"]
+        tp = os.path.join(path, "tail.npz")
+        if os.path.exists(tp):
+            t = np.load(tp)
+            idx.tail = _tensor(t["tail"], idx.device).to(idx.dtype)
+            idx.tail_sq = D.squared_norms(idx.tail)
+            idx.tail_ids = _tensor(t["tail_ids"], idx.device)
+            idx.tail_n = int(t["tail_n"])
+            idx.tail_live = int((t["tail_ids"] >= 0).sum())
+        return idx
 
     # ----------------------------------------------------------------- stats
     def stats(self) -> dict:
@@ -616,6 +1116,7 @@ class BlockHnswIndex:
         total = sum(comp.values())
         return {
             "n": self.n,
+            "tail_n": self.tail_n,
             "n_blocks": self.n_blocks,
             "block_size": self.block_size,
             "dim": self.cfg.dim,

@@ -5,93 +5,35 @@ scoring copies the reference serves through XLA (``block.py:127-130``,
 ``block.py:181-200``): f32, bf16 and int8 rows. On a CUDA tensor
 :func:`expand_score` launches ``csrc/expand_score.cu`` or raises; on a CPU
 tensor it runs :func:`expand_score_reference`. The kernel library is
-compiled with ``nvcc`` at first use into ``tpu_hnsw_torch/_build/`` and
-rebuilt when its source changes; it is loaded with ``ctypes``.
+built by ``ops/_nvcc.py`` at first use and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
 from tpu_hnsw_torch.config import Metric
+from tpu_hnsw_torch.ops import _nvcc
 
 #: kernel launches so far; a run resets it to show the kernel was used
 LAUNCHES = 0
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG, "csrc", "expand_score.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+NAME = "expand_score"
+_P = ctypes.c_void_p
+_ARGTYPES = [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # elements of the gathered [chunk, p, S, dp] operand per step of the plain
 # version (bounds its temporaries at main-path shapes)
 _REF_CHUNK_ELEMS = 1 << 27
 
-_lib = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to a CUDA toolkit")
-    return found
-
-
-def _library_path() -> str:
-    """Where the library for the current source lives (content-addressed)."""
-    with open(_SOURCE, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode())
-    return os.path.join(_BUILD_DIR, f"expand_score-{h.hexdigest()[:16]}.so")
-
-
-def build_library() -> tuple[str, str]:
-    """Compile the kernel library if this source has not been built.
-    Returns (path, compiler output; empty when already built)."""
-    path = _library_path()
-    if os.path.exists(path):
-        return path, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: two processes building at once is safe
-    return path, proc.stdout + proc.stderr
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process."""
-    global _lib
-    if _lib is None:
-        path, _ = build_library()
-        lib = ctypes.CDLL(path)
-        fn = lib.expand_score_launch
-        P = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, P, P, P, P, P, P, P, P, P,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       P]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
 
 def expand_score_reference(blocks, blocks_sq, block_ids, q, q_sq, bids,
                            metric: Metric, *, q8=None, q_scale=None,
-                           score_scale=None) -> torch.Tensor:
+                           score_scale=None, allowed=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`expand_score` (same arguments).
 
     int8 dots are exact: a float64 product is exact for int8 x int8 sums
@@ -123,7 +65,10 @@ def expand_score_reference(blocks, blocks_sq, block_ids, q, q_sq, bids,
                 0.0)
         else:
             sc = -dots
-        out[s:s + step] = torch.where(block_ids[b] < 0, torch.inf, sc)
+        dead = block_ids[b] < 0
+        if allowed is not None:
+            dead |= ~allowed[b]
+        out[s:s + step] = torch.where(dead, torch.inf, sc)
     return out
 
 
@@ -140,7 +85,8 @@ def _check(name, t, dtype, shape, device):
 
 
 def expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
-                 *, q8=None, q_scale=None, score_scale=None) -> torch.Tensor:
+                 *, q8=None, q_scale=None, score_scale=None,
+                 allowed=None) -> torch.Tensor:
     """Scores of every row of every selected block: ``[Q, p, S]`` f32.
 
     blocks ``[B, S, dp]`` f32, bf16 or int8; blocks_sq ``[B, S]`` f32;
@@ -148,13 +94,15 @@ def expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
     q_sq ``[Q]`` f32; bids ``[Q, p]`` block ids in ``[0, B)``. int8 rows
     also take ``q8 [Q, dp]`` int8, ``q_scale [Q]`` and ``score_scale [B]``
     f32 (dot = int dot * q_scale * score_scale). L2 scores are
-    ``max(q_sq + x_sq - 2 dot, 0)``, IP and cosine ``-dot``.
+    ``max(q_sq + x_sq - 2 dot, 0)``, IP and cosine ``-dot``. ``allowed``
+    ``[B, S]`` bool (the filter) scores a disallowed row +inf, as a
+    ``block_ids < 0`` row is.
     """
     global LAUNCHES
     if blocks.device.type == "cpu":
         return expand_score_reference(
             blocks, blocks_sq, block_ids, q, q_sq, bids, metric, q8=q8,
-            q_scale=q_scale, score_scale=score_scale)
+            q_scale=q_scale, score_scale=score_scale, allowed=allowed)
     if blocks.device.type != "cuda":
         raise ValueError(f"expand_score: no kernel for {blocks.device}")
     if blocks.dtype not in _MODES:
@@ -171,6 +119,8 @@ def expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
     _check("q", q, torch.float32, (Q, dp), dev)
     bids = bids.to(torch.int64).contiguous()
     _check("bids", bids, torch.int64, (Q, p), dev)
+    if allowed is not None:
+        _check("allowed", allowed, torch.bool, (B, S), dev)
     if blocks.dtype == torch.int8:
         if q8 is None or q_scale is None or score_scale is None:
             raise ValueError("int8 blocks need q8, q_scale and score_scale")
@@ -189,12 +139,13 @@ def expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
     nchunks = row_bytes // (4 * words)
     lanes = min(32, 1 << (nchunks.bit_length() - 1))
     out = torch.empty((Q, p, S), dtype=torch.float32, device=dev)
-    lib = load_library()
+    lib = _nvcc.load_library(NAME, "expand_score_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.expand_score_launch(
             _MODES[blocks.dtype], words, blocks.data_ptr(),
-            blocks_sq.data_ptr(), block_ids.data_ptr(), q_op.data_ptr(),
+            blocks_sq.data_ptr(), block_ids.data_ptr(),
+            None if allowed is None else allowed.data_ptr(), q_op.data_ptr(),
             q_sq.data_ptr(), bids.data_ptr(), qs_ptr, ss_ptr, out.data_ptr(),
             B, Q, p, S, row_bytes, int(metric is Metric.L2), lanes, stream)
     if err != 0:
