@@ -59,7 +59,7 @@ def _assert_exact(d, ids, base, queries, metric):
 @pytest.fixture(scope="module")
 def data():
     base, queries = _bits()
-    gt = {m: BinaryFlatIndex.from_bits(base, metric=m).search(
+    gt = {m: BinaryFlatIndex.from_bits(base, metric=m, device="cpu").search(
         bitops.pack_bits(queries), k=10)[1] for m in ("hamming", "jaccard")}
     return base, queries, gt
 
@@ -81,7 +81,7 @@ def test_recall_exact_distances_and_parity_with_jax(data, jax_idx, metric,
     bf16 vs f32 k-means inputs for jaccard); distances exact."""
     base, queries, gt = data
     idx = BinaryHnswIndex(NBITS, metric=metric, engine="block",
-                          block_size=64).build(base)
+                          block_size=64, device="cpu").build(base)
     d, ids = idx.search(queries, k=10, probes=16, rerank_k=100)
     _, jids = jax_idx[metric].search(queries, k=10, probes=16, rerank_k=100)
     r = recall_at_k(ids, gt[metric], 10)
@@ -97,7 +97,7 @@ def test_search_sends_uint8_bits(data, metric, monkeypatch):
     it does for that f32 copy: the same ids and distances."""
     base, queries, _ = data
     idx = BinaryHnswIndex(NBITS, metric=metric, engine="block",
-                          block_size=64).build(base)
+                          block_size=64, device="cpu").build(base)
     engine = idx.inner.search_device
     seen = []
 
@@ -115,8 +115,8 @@ def test_search_sends_uint8_bits(data, metric, monkeypatch):
 
 def test_packed_input_matches_bits_input(data):
     base, queries, _ = data
-    a = BinaryHnswIndex(NBITS, engine="block", block_size=64).build(base)
-    b = BinaryHnswIndex(NBITS, engine="block", block_size=64).build(
+    a = BinaryHnswIndex(NBITS, engine="block", block_size=64, device="cpu").build(base)
+    b = BinaryHnswIndex(NBITS, engine="block", block_size=64, device="cpu").build(
         bitops.pack_bits(base), packed=True)
     da, ia = a.search(queries, k=5, probes=8)
     db, ib = b.search(bitops.pack_bits(queries), k=5, packed=True, probes=8)
@@ -130,10 +130,10 @@ def test_add_and_delete(data, metric, floor):
     base, queries, _ = data
     base, queries = base[:2000], queries[:16]
     idx = BinaryHnswIndex(NBITS, metric=metric, engine="block",
-                          block_size=64).build(base[:1500])
+                          block_size=64, device="cpu").build(base[:1500])
     ids = idx.add(base[1500:])
     assert (ids == np.arange(1500, 2000)).all() and idx.inner.size == 2000
-    oracle = BinaryFlatIndex.from_bits(base, metric=metric)
+    oracle = BinaryFlatIndex.from_bits(base, metric=metric, device="cpu")
     _, gt = oracle.search(bitops.pack_bits(queries), k=10)
     d, got = idx.search(queries, k=10, probes=16, rerank_k=100)
     assert recall_at_k(got, gt, 10) >= floor
@@ -147,11 +147,11 @@ def test_add_and_delete(data, metric, floor):
 def test_save_load_roundtrip_and_stats(data, tmp_path):
     base, queries, _ = data
     idx = BinaryHnswIndex(NBITS, metric="jaccard", engine="block",
-                          block_size=64).build(base[:1500])
+                          block_size=64, device="cpu").build(base[:1500])
     idx.add(base[1500:1510])
     d0, i0 = idx.search(queries, k=5, rerank_k=60, probes=8)
     idx.save(str(tmp_path / "bin"))
-    idx2 = BinaryHnswIndex.load(str(tmp_path / "bin"))
+    idx2 = BinaryHnswIndex.load(str(tmp_path / "bin"), device="cpu")
     d1, i1 = idx2.search(queries, k=5, rerank_k=60, probes=8)
     assert np.array_equal(i0, i1) and np.array_equal(d0, d1)
     s = idx2.stats()
@@ -161,9 +161,9 @@ def test_save_load_roundtrip_and_stats(data, tmp_path):
 
 def test_graph_engine_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="slice 2"):
-        BinaryHnswIndex(NBITS)  # the reference's default engine
+        BinaryHnswIndex(NBITS, device="cpu")  # the reference's default engine
     with pytest.raises(ValueError, match="engine"):
-        BinaryHnswIndex(NBITS, engine="ivf")
+        BinaryHnswIndex(NBITS, engine="ivf", device="cpu")
 
 
 @pytest.mark.parametrize("metric", ["hamming", "jaccard"])
@@ -178,7 +178,7 @@ def test_from_state_serves_jax_build_with_equal_distances(data, jax_idx,
     state = {k: np.asarray(getattr(j.inner, k)) for k in STATE_KEYS}
     state.update(n=j.inner.n, n_blocks=j.inner.n_blocks)
     idx = BinaryHnswIndex.from_state(NBITS, metric, state, packed=j._packed,
-                                     block_size=64)
+                                     block_size=64, device="cpu")
     jd, _ = j.search(queries, k=10, probes=8, rerank_k=100)
     d, ids = idx.search(queries, k=10, probes=8, rerank_k=100)
     np.testing.assert_array_equal(d, jd)
@@ -191,7 +191,7 @@ def test_saved_by_jax_loads_in_port_and_back(data, jax_idx, tmp_path):
     base, queries, _ = data
     j = jax_idx["hamming"]
     j.save(str(tmp_path / "j"))
-    port = BinaryHnswIndex.load(str(tmp_path / "j"))
+    port = BinaryHnswIndex.load(str(tmp_path / "j"), device="cpu")
     jd, _ = j.search(queries, k=10, probes=8)
     d, ids = port.search(queries, k=10, probes=8)
     np.testing.assert_array_equal(d, jd)

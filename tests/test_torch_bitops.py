@@ -124,7 +124,7 @@ def test_binary_flat_index_matches_jax(metric):
     q = base[rng.integers(0, 600, 24)] ^ (rng.random((24, 200)) < 0.05)
     pb, pq = B.pack_bits(base), B.pack_bits(q)
     jd, jids = JFlat.from_bits(base, metric=metric).search(pq, k=10)
-    d, ids = B.BinaryFlatIndex.from_bits(base, metric=metric).search(pq, k=10)
+    d, ids = B.BinaryFlatIndex.from_bits(base, metric=metric, device="cpu").search(pq, k=10)
     assert d.dtype == np.float32 and ids.dtype == np.int32
     np.testing.assert_array_equal(d, jd)
     if metric == "hamming":
@@ -145,7 +145,7 @@ def test_jaccard_identity_equals_and_or_form():
     x[3] = 0
     q = _words(rng, (6, 4))
     q[1] = 0
-    flat = B.BinaryFlatIndex(x, metric="jaccard")
+    flat = B.BinaryFlatIndex(x, metric="jaccard", device="cpu")
     d, ids = flat.search(q, k=50)
     qt, xt = _t(q.view(np.int32)), _t(x.view(np.int32))
     inter = H.popcount(qt[:, None] & xt[None]).sum(-1, dtype=torch.int32)

@@ -41,7 +41,7 @@ def ref():
                   block_size=64).build(base)
     state = {k: np.asarray(getattr(jidx, k)) for k in STATE_KEYS}
     state.update(n=jidx.n, n_blocks=jidx.n_blocks)
-    gt = FlatIndex(base, Metric.L2).search(q, k=10, exact=True)[1]
+    gt = FlatIndex(base, Metric.L2, device="cpu").search(q, k=10, exact=True)[1]
     return base, q, jidx, state, gt
 
 
@@ -67,7 +67,7 @@ def _assert_ids_equal_up_to_ties(ids, jids, d, jd, base, q):
 
 def test_carried_state_single_stage_all_probes_matches(ref):
     base, q, jidx, state, gt = ref
-    idx = BlockHnswIndex.from_state(CFG, state, block_size=64)
+    idx = BlockHnswIndex.from_state(CFG, state, block_size=64, device="cpu")
     idx.two_stage = jidx.two_stage = False
     try:
         jd, jids = jidx.search(q, k=10, probes=jidx.n_blocks)
@@ -84,7 +84,7 @@ def test_carried_state_int8_two_stage_agrees(ref):
     ids agree to f32 rounding (both rerank exactly in f32;
     _assert_sq_close states the bound)."""
     base, q, jidx, state, gt = ref
-    idx = BlockHnswIndex.from_state(CFG, state, block_size=64)
+    idx = BlockHnswIndex.from_state(CFG, state, block_size=64, device="cpu")
     assert idx.score_dtype == "int8" and idx.blocks_score.shape[2] == 32
     jd, jids = jidx.search(q, k=10, probes=16)
     d, ids = idx.search(q, k=10, probes=16)
@@ -107,8 +107,8 @@ def test_score_copy_bytes_match_reference(ref):
 
 def test_own_build_all_probes_matches_exact_oracle():
     base, q = _data(n=4096)
-    idx = BlockHnswIndex(CFG, block_size=64).build(base)
-    gt = FlatIndex(base, Metric.L2).search(q, k=10, exact=True)[1]
+    idx = BlockHnswIndex(CFG, block_size=64, device="cpu").build(base)
+    gt = FlatIndex(base, Metric.L2, device="cpu").search(q, k=10, exact=True)[1]
     _, ids = idx.search(q, k=10, probes=idx.n_blocks)
     assert recall_at_k(ids, gt, 10) == 1.0
 
@@ -118,7 +118,7 @@ def test_own_build_recall_at_modest_probes(ref, score_dtype):
     """16 of 135 blocks probed: recall >= 0.95 and within 0.02 of the
     reference build's (same data, same seed)."""
     base, q, jidx, _, gt = ref
-    idx = BlockHnswIndex(CFG, block_size=64)
+    idx = BlockHnswIndex(CFG, block_size=64, device="cpu")
     idx.score_dtype = score_dtype
     idx.build(base)
     assert idx.n_blocks == jidx.n_blocks
@@ -137,9 +137,9 @@ def test_device_tensor_build_and_exhaustive_scan():
     exhaustive-scan threshold lowered, probes >= n_blocks takes _scan_all
     and stays exact."""
     base, q = _data(n=4096)
-    gt = FlatIndex(base, Metric.L2).search(q, k=10, exact=True)[1]
-    a = BlockHnswIndex(CFG, block_size=64).build(base)
-    b = BlockHnswIndex(CFG, block_size=64).build(torch.from_numpy(base))
+    gt = FlatIndex(base, Metric.L2, device="cpu").search(q, k=10, exact=True)[1]
+    a = BlockHnswIndex(CFG, block_size=64, device="cpu").build(base)
+    b = BlockHnswIndex(CFG, block_size=64, device="cpu").build(torch.from_numpy(base))
     assert torch.equal(a.block_ids, b.block_ids)
     assert b.build_stats["device_resident_input"]
     b.EXHAUSTIVE_SCAN_MIN_BLOCKS = 0
@@ -150,8 +150,8 @@ def test_device_tensor_build_and_exhaustive_scan():
 def test_cosine_metric():
     base, q = _data(n=4096)
     cfg = HnswConfig(dim=32, m=8, ef_construction=32, metric=Metric.COSINE)
-    idx = BlockHnswIndex(cfg, block_size=64).build(base)
-    gt = FlatIndex(base, Metric.COSINE).search(q, k=10, exact=True)[1]
+    idx = BlockHnswIndex(cfg, block_size=64, device="cpu").build(base)
+    gt = FlatIndex(base, Metric.COSINE, device="cpu").search(q, k=10, exact=True)[1]
     _, ids = idx.search(q, k=10, probes=16)
     assert recall_at_k(ids, gt, 10) >= 0.9
     d, _ = idx.search(q[:4], k=5, probes=idx.n_blocks)  # 1 - cos in [0, 2]
@@ -161,8 +161,8 @@ def test_cosine_metric():
 def test_ip_metric():
     base, q = _data(n=4096)
     cfg = HnswConfig(dim=32, m=8, ef_construction=32, metric=Metric.IP)
-    idx = BlockHnswIndex(cfg, block_size=64).build(base)
-    gt = FlatIndex(base, Metric.IP).search(q, k=10, exact=True)[1]
+    idx = BlockHnswIndex(cfg, block_size=64, device="cpu").build(base)
+    gt = FlatIndex(base, Metric.IP, device="cpu").search(q, k=10, exact=True)[1]
     _, ids = idx.search(q, k=10, probes=24)
     assert recall_at_k(ids, gt, 10) >= 0.9
 
@@ -173,17 +173,17 @@ def test_later_slices_raise_not_implemented(tmp_path):
     raises NotImplementedError naming the slice."""
     base, q = _data(n=1024)
     with pytest.raises(NotImplementedError, match="slice 2"):
-        BlockHnswIndex(CFG, routing="graph")
+        BlockHnswIndex(CFG, routing="graph", device="cpu")
     # "auto" needs graph routing above EXACT_ROUTING_MAX blocks; "exact"
     # scans every centroid at any block count
-    auto = BlockHnswIndex(CFG, block_size=64)
+    auto = BlockHnswIndex(CFG, block_size=64, device="cpu")
     auto.EXACT_ROUTING_MAX = 8
     with pytest.raises(NotImplementedError, match="graph routing"):
         auto.build(base)
-    exact = BlockHnswIndex(CFG, block_size=64, routing="exact")
+    exact = BlockHnswIndex(CFG, block_size=64, routing="exact", device="cpu")
     exact.EXACT_ROUTING_MAX = 8
     assert exact.build(base).n_blocks == 17
     exact.save(str(tmp_path / "x"))
     (tmp_path / "x" / "centroid_graph").mkdir()
     with pytest.raises(NotImplementedError, match="slice 2"):
-        BlockHnswIndex.load(str(tmp_path / "x"))
+        BlockHnswIndex.load(str(tmp_path / "x"), device="cpu")

@@ -31,14 +31,14 @@ def _data(n=2048, d=32, nq=64, seed=0):
 def _pair(base, block_size=64, **cfg):
     """The same index built by both packages (same data and seed)."""
     kw = dict(dim=base.shape[1], m=8, ef_construction=32, **cfg)
-    return (BlockHnswIndex(HnswConfig(**kw), block_size=block_size).build(base),
+    return (BlockHnswIndex(HnswConfig(**kw), block_size=block_size, device="cpu").build(base),
             JBlock(JCfg(**kw), block_size=block_size).build(base))
 
 
 def _gt(base, queries, k, rows=None):
     """Exact top-k ids over ``rows`` of ``base`` (all rows by default)."""
     rows = np.arange(len(base)) if rows is None else np.asarray(rows)
-    _, ids = FlatIndex(base[rows], Metric.L2).search(queries, k=k, exact=True)
+    _, ids = FlatIndex(base[rows], Metric.L2, device="cpu").search(queries, k=k, exact=True)
     return np.where(ids >= 0, rows[np.clip(ids, 0, None)], -1)
 
 
@@ -108,7 +108,7 @@ def test_save_load_roundtrip(tmp_path):
         ix.add(extra)
     d0, i0 = idx.search(queries, k=10, probes=8)
     idx.save(str(tmp_path / "p"))
-    idx2 = BlockHnswIndex.load(str(tmp_path / "p"))
+    idx2 = BlockHnswIndex.load(str(tmp_path / "p"), device="cpu")
     d1, i1 = idx2.search(queries, k=10, probes=8)
     np.testing.assert_array_equal(i0, i1)
     np.testing.assert_array_equal(d0, d1)
@@ -118,7 +118,7 @@ def test_save_load_roundtrip(tmp_path):
     jd, ji = j_of_p.search(queries, k=10, probes=8)
     assert (ji == i0).mean() >= 0.99
     jidx.save(str(tmp_path / "j"))
-    p_of_j = BlockHnswIndex.load(str(tmp_path / "j"))
+    p_of_j = BlockHnswIndex.load(str(tmp_path / "j"), device="cpu")
     jd0, ji0 = jidx.search(queries, k=10, probes=8)
     pd, pi = p_of_j.search(queries, k=10, probes=8)
     same = pi == ji0
@@ -135,7 +135,7 @@ def test_lazy_slot_map_delete_add_save(tmp_path):
     delete, add and save make it when they need it."""
     base, queries = _data()
     idx = BlockHnswIndex(HnswConfig(dim=32, m=8, ef_construction=32, seed=2),
-                         block_size=64).build(base)
+                         block_size=64, device="cpu").build(base)
     assert idx._slot_of is None
     victim = int(_gt(base, queries[:1], 5)[0, 0])
     idx.delete([victim])
@@ -144,7 +144,7 @@ def test_lazy_slot_map_delete_add_save(tmp_path):
     new_ids = idx.add(base[:3])
     assert len(new_ids) == 3 and idx.tail_live == 3
     idx.save(str(tmp_path / "blk"))
-    idx2 = BlockHnswIndex.load(str(tmp_path / "blk"))
+    idx2 = BlockHnswIndex.load(str(tmp_path / "blk"), device="cpu")
     np.testing.assert_array_equal(idx.search(queries, k=5, probes=8)[1],
                                   idx2.search(queries, k=5, probes=8)[1])
 
@@ -162,7 +162,7 @@ def fdata():
 def test_block_filtered_search(fdata):
     base, queries, mask = fdata
     kw = dict(dim=32, m=16, ef_construction=64, seed=0)
-    idx = BlockHnswIndex(HnswConfig(**kw), block_size=64).build(base)
+    idx = BlockHnswIndex(HnswConfig(**kw), block_size=64, device="cpu").build(base)
     jidx = JBlock(JCfg(**kw), block_size=64).build(base)
     gt = _gt(base, queries, 10, np.where(mask)[0])
     recs = []
@@ -192,7 +192,7 @@ def test_block_filtered_tail_and_exhaustive(fdata, two_stage):
     disallowed positions out."""
     base, queries, mask = fdata
     kw = dict(dim=32, m=16, ef_construction=64, seed=0)
-    idx = BlockHnswIndex(HnswConfig(**kw), block_size=64).build(base[:5000])
+    idx = BlockHnswIndex(HnswConfig(**kw), block_size=64, device="cpu").build(base[:5000])
     idx.two_stage = two_stage
     idx.add(base[5000:])
     gt = _gt(base, queries, 10, np.where(mask)[0])
@@ -212,7 +212,7 @@ def test_block_filtered_tail_and_exhaustive(fdata, two_stage):
 def test_tail_only_index_serves(fdata):
     """An index built empty serves its spill tail alone (n_blocks == 0)."""
     base, queries, mask = fdata
-    idx = BlockHnswIndex(HnswConfig(dim=32, m=8, ef_construction=32))
+    idx = BlockHnswIndex(HnswConfig(dim=32, m=8, ef_construction=32), device="cpu")
     idx.build(np.zeros((0, 32), np.float32))
     idx.add(base[:300])
     _, ids = idx.search(queries, k=5, filter_mask=mask)
@@ -268,7 +268,7 @@ def test_block_iterative_scan_covers_tail():
 
 def test_block_index_empty_state_is_safe():
     cfg = dict(dim=8, m=4, ef_construction=8)
-    for ix in (BlockHnswIndex(HnswConfig(**cfg)), JBlock(JCfg(**cfg))):
+    for ix in (BlockHnswIndex(HnswConfig(**cfg), device="cpu"), JBlock(JCfg(**cfg))):
         assert ix.size == 0 and ix.stats()["n"] == 0
         ix.delete([3, 5])  # no-op
         with pytest.raises(ValueError, match="empty"):
@@ -284,7 +284,7 @@ def test_save_raises_on_short_blob_write(tmp_path, monkeypatch):
     The port checks the file holds every byte and raises otherwise."""
     base, _ = _data(n=512)
     idx = BlockHnswIndex(HnswConfig(dim=32, m=8, ef_construction=32),
-                         block_size=64).build(base)
+                         block_size=64, device="cpu").build(base)
     real = os.path.getsize
     monkeypatch.setattr(BK.os.path, "getsize",
                         lambda p: real(p) - 1 if p.endswith(".bin")
@@ -300,15 +300,15 @@ def test_block_slack_persists(tmp_path):
     base, queries = _data(n=1024)
     cfg = dict(dim=32, m=8, ef_construction=32)
     idx = BlockHnswIndex(HnswConfig(**cfg), block_size=64,
-                         block_slack=1.5).build(base)
+                         block_slack=1.5, device="cpu").build(base)
     idx.save(str(tmp_path / "p"))
-    assert BlockHnswIndex.load(str(tmp_path / "p")).block_slack == 1.5
+    assert BlockHnswIndex.load(str(tmp_path / "p"), device="cpu").block_slack == 1.5
     assert JBlock.load(str(tmp_path / "p")).block_slack == 1.05  # reference
     j = JBlock(JCfg(**cfg), block_size=64, block_slack=1.5).build(base)
     j.save(str(tmp_path / "j"))
     with open(tmp_path / "j" / "meta.json") as f:
         assert "block_slack" not in json.load(f)
-    assert BlockHnswIndex.load(str(tmp_path / "j")).block_slack == 1.05
+    assert BlockHnswIndex.load(str(tmp_path / "j"), device="cpu").block_slack == 1.05
 
 
 def test_filtered_iterative_scan_widens_the_tail():
@@ -413,7 +413,7 @@ def test_compact_exports_storage_dtype(monkeypatch):
     cfg = HnswConfig(dim=32, m=8, ef_construction=32, dtype="bfloat16")
 
     def mutated():
-        ix = BlockHnswIndex(cfg, block_size=64).build(base[:1800])
+        ix = BlockHnswIndex(cfg, block_size=64, device="cpu").build(base[:1800])
         ix.add(base[1800:])
         ix.delete(np.arange(0, 2048, 7))
         return ix

@@ -24,7 +24,7 @@ def test_exact_ids_match_reference_on_sift_fixture(metric):
     base = read_fvecs(os.path.join(FIX, "sift10k_base.fvecs"))
     q = read_fvecs(os.path.join(FIX, "sift10k_query.fvecs"))
     _, want = JFlat(base, JMetric(metric)).search(q, k=10, exact=True)
-    d, got = FlatIndex(base, Metric(metric)).search(q, k=10, exact=True)
+    d, got = FlatIndex(base, Metric(metric), device="cpu").search(q, k=10, exact=True)
     np.testing.assert_array_equal(got, want)
     if metric == "l2":  # the fixture's own ground truth
         gt = read_ivecs(os.path.join(FIX, "sift10k_groundtruth.ivecs"))
@@ -47,7 +47,7 @@ def test_exact_and_default_paths(metric):
     terms, which the two sides take in different orders."""
     base, q = synthetic_clustered(4096, 32, n_queries=32, seed=2)
     jd, jids = JFlat(base, JMetric(metric)).search(q, k=10, exact=True)
-    flat = FlatIndex(base, Metric(metric))
+    flat = FlatIndex(base, Metric(metric), device="cpu")
     d, ids = flat.search(q, k=10, exact=True)
     assert (ids != jids).mean() <= 0.01
     if metric == "cosine":
@@ -62,7 +62,7 @@ def test_exact_and_default_paths(metric):
 
 def test_k_above_table_size_pads():
     base, q = synthetic_clustered(20, 8, n_queries=3, seed=4)
-    d, ids = FlatIndex(base).search(q, k=30)
+    d, ids = FlatIndex(base, device="cpu").search(q, k=30)
     assert ids.shape == (3, 30) and (ids[:, 20:] == -1).all()
     assert np.isinf(d[:, 20:]).all()
     assert sorted(ids[0, :20]) == list(range(20))

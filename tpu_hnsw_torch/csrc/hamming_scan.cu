@@ -1,112 +1,561 @@
-// All-pairs hamming distances over packed bits, for Hopper (sm_90a).
+// Hamming and jaccard scans over packed bits on Hopper's tensor cores
+// (sm_90a): all pairs, or a fused top-k that writes no [Q, N] matrix.
 //
 // Replaces: tpu_hnsw/ops/pallas_hamming.py::hamming_scan (Pallas body
 // _kernel; wrapper hamming_scan_auto), the exact scan of BinaryFlatIndex
-// (tpu_hnsw/ops/bitops.py:74-79).
+// (tpu_hnsw/ops/bitops.py:74-91), and the top_k that follows it there.
 //
-// What it computes: out[q, n] = sum over w < W of popcount(qw[q, w] ^ x[n, w])
-// for q < Q, n < N, over packed 32-bit words, as int32. Ragged Q and N are
-// masked here; the wrapper pads nothing.
+// What it computes: for q < Q, n < N over packed 32-bit words (bit j of
+// word w is bit 32w + j), and_cnt[q, n] = sum over w of popcount(q & x),
+// then h = |q| + |x| - 2 and_cnt from the row popcounts the caller gives.
+//   hamming_scan_launch: out[q, n] = h, int32 (the TPU kernel's contract).
+//   hamming_topk_launch: per CTA and query, the k smallest keys
+//     (distance f32 bits << 32 | row id) of the rows the CTA covers, where
+//     distance is h (hamming) or 1 - inter / max(union, 1) (jaccard, IEEE
+//     f32 through __fdiv_rn / __fsub_rn, as the reference divides). The
+//     wrapper merges the [Q, splits * k] candidates by key, so ties order
+//     by row id, as lax.top_k(-d) does.
 //
-// What bounds it: the popcount rate. At Q = 1024, N = 1M, W = 48 (1536
-// bits) that is 5.0e10 popcounts; at the data sheet's 16 popc/clk/SM x 132
-// SMs that is roughly 10-15 ms, while the 4 GB int32 output is about 1.2 ms
-// at 3.35 TB/s and the packed table 192 MB per query tile. Per popcount the
-// loop issues one XOR, one POPC and one add; the query word comes from
-// shared memory as a broadcast.
+// What bounds it: the bit products. At Q = 1024, N = 1M, 1536 bits that is
+// 1.61e15 products; run as int8 MACs on the tensor cores, 3.2e15 ops at the
+// data sheet's 1,979 TOP/s: 1.63 ms. The packed table (192 MB) is 0.06 ms
+// of HBM; the all-pairs output (4 GB of int32) 1.25 ms.
 //
-// What the design does about it: a CTA takes a tile of kTQ queries and
-// kThreads base rows. The query tile is staged in shared memory kWC words
-// at a time, so any W works (W = 2000, pgvector's widest bit index, too).
-// Each thread owns one base row, reads it once per query tile with 16-byte
-// loads when W % 4 == 0 (4-byte loads otherwise) and keeps kTQ int32 sums
-// in registers; writes of out[q, n] are coalesced over n. A fused top-k (no
-// [Q, N] output) is later work.
+// What the design does about it: the products run on the tensor cores
+// with mma.sync. A CTA of 4 warps takes a tile of 64 queries x 128 rows;
+// every warp holds all 64 queries against its own 32 rows as 16
+// m16n8 fragments of int32 sums. The words reach shared memory a chunk at
+// a time (16-byte loads when W % 4 == 0 and both tables are aligned, else
+// 4-byte loads; the next chunk is loaded into registers while the tensor
+// cores work on this one); ragged Q, N and W are zero-filled there, which
+// adds nothing to a count. Operands are read with ldmatrix. Two routes,
+// picked by the caller:
+//   b1:   mma.m16n8k256 .b1 .and.popc on the packed words as they are;
+//   int8: each word is spread to 32 bytes of 0/1 in shared memory and
+//         multiplied with mma.m16n8k32 .u8.
+// Each CTA walks a contiguous range of row tiles (about four waves of CTAs
+// over the card), so the top-k keeps one running list per query in shared
+// memory: a candidate enters a 32-slot staging list only when it beats the
+// query's k-th key, and a warp merges staged keys into the sorted list
+// (bitonic sort of the 32, then a rank merge). Nothing of size [Q, N]
+// reaches device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // base rows per CTA
-constexpr int kTQ = 32;        // queries per CTA
-constexpr int kWC = 64;        // query words staged per pass
+typedef unsigned long long u64;
 
-template <int VEC>
-__global__ void __launch_bounds__(kThreads)
-hamming_scan_kernel(const uint32_t* __restrict__ q,
-                    const uint32_t* __restrict__ x, int* __restrict__ out,
-                    int Q, long long N, int W) {
-  __shared__ __align__(16) uint32_t qs[kTQ][kWC];
-  const long long n = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const int q0 = blockIdx.y * kTQ;
-  const bool row_ok = n < N;
-  const uint32_t* xr = x + (row_ok ? n : 0) * W;
+constexpr int kBQ = 64;             // queries per CTA tile: 4 m16 fragments
+constexpr int kWarps = 4;           // each warp: kBQ queries x 32 rows
+constexpr int kBN = kWarps * 32;    // rows per CTA tile
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kBQ + kBN;    // staged rows per chunk
+constexpr int kSC = 32;             // staging slots per query (top-k)
+constexpr int kMaxK = 128;          // list capacity a warp merges
+constexpr u64 kMaxKey = 0x7fffffffffffffffULL;  // above every real key
 
-  int acc[kTQ];
+template <bool kB1>
+struct Route {
+  static constexpr int kCW = kB1 ? 32 : 8;           // packed words a chunk
+  static constexpr int kRB = kB1 ? kCW * 4 : kCW * 32;  // smem bytes a row
+  static constexpr int kRS = kRB + 16;               // stride: no conflicts
+  static constexpr int kSteps = kRB / 32;            // mma k-steps a chunk
+};
+
+template <bool kBits>
+__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  if constexpr (kBits) {
+    asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const char* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Bits 4i..4i+3 of w as four bytes of 0/1, bit 4i + j in byte j.
+__device__ __forceinline__ uint32_t nibble_bytes(uint32_t w, int i) {
+  return (((w >> (4 * i)) & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// One chunk (kCW words) of the kBQ query rows and kBN base rows, through
+// registers into shared memory; rows or words past the end are zero.
+template <bool kB1, int VEC>
+struct Loader {
+  using R = Route<kB1>;
+  static constexpr int kPerRow = R::kCW / VEC;               // items a row
+  static constexpr int kItems = kRows * kPerRow / kThreads;  // a thread
+  static_assert(kRows * kPerRow % kThreads == 0, "items");
+  uint32_t v[kItems][VEC];
+
+  __device__ __forceinline__ void load(const uint32_t* __restrict__ q,
+                                       const uint32_t* __restrict__ x,
+                                       int q0, int Q, long long n0,
+                                       long long N, int W, int w0) {
 #pragma unroll
-  for (int t = 0; t < kTQ; ++t) acc[t] = 0;
-
-  for (int w0 = 0; w0 < W; w0 += kWC) {
-    const int wc = min(kWC, W - w0);
-    // stage queries [q0, q0 + kTQ) x words [w0, w0 + wc); rows past Q are 0
-    for (int i = threadIdx.x; i < kTQ * kWC; i += kThreads) {
-      const int t = i / kWC, w = i % kWC;
-      qs[t][w] = (q0 + t < Q && w < wc)
-                     ? q[static_cast<long long>(q0 + t) * W + w0 + w]
-                     : 0u;
-    }
-    __syncthreads();
-    if (row_ok) {
-      if constexpr (VEC == 4) {
-        for (int w = 0; w < wc; w += 4) {
-          const uint4 xv = __ldg(reinterpret_cast<const uint4*>(xr + w0 + w));
-#pragma unroll
-          for (int t = 0; t < kTQ; ++t) {
-            const uint4 qv = *reinterpret_cast<const uint4*>(&qs[t][w]);
-            acc[t] += __popc(qv.x ^ xv.x) + __popc(qv.y ^ xv.y) +
-                      __popc(qv.z ^ xv.z) + __popc(qv.w ^ xv.w);
-          }
-        }
+    for (int i = 0; i < kItems; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int row = idx / kPerRow;
+      const int w = w0 + (idx % kPerRow) * VEC;
+      const uint32_t* src;
+      bool ok = w < W;  // VEC = 4 only when W % 4 == 0
+      if (row < kBQ) {
+        ok = ok && q0 + row < Q;
+        src = q + static_cast<long long>(q0 + row) * W + w;
       } else {
-        for (int w = 0; w < wc; ++w) {
-          const uint32_t xv = __ldg(xr + w0 + w);
+        const long long n = n0 + (row - kBQ);
+        ok = ok && n < N;
+        src = x + n * W + w;
+      }
+      if constexpr (VEC == 4) {
+        uint4 t = make_uint4(0u, 0u, 0u, 0u);
+        if (ok) t = __ldg(reinterpret_cast<const uint4*>(src));
+        v[i][0] = t.x; v[i][1] = t.y; v[i][2] = t.z; v[i][3] = t.w;
+      } else {
+        v[i][0] = ok ? __ldg(src) : 0u;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(char* sop) const {
 #pragma unroll
-          for (int t = 0; t < kTQ; ++t) acc[t] += __popc(qs[t][w] ^ xv);
+    for (int i = 0; i < kItems; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int row = idx / kPerRow;
+      const int part = idx % kPerRow;
+      char* dst = sop + row * R::kRS + part * VEC * (kB1 ? 4 : 32);
+      if constexpr (kB1) {
+        if constexpr (VEC == 4)
+          *reinterpret_cast<uint4*>(dst) =
+              make_uint4(v[i][0], v[i][1], v[i][2], v[i][3]);
+        else
+          *reinterpret_cast<uint32_t*>(dst) = v[i][0];
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const uint32_t w = v[i][j];
+          uint4* d = reinterpret_cast<uint4*>(dst + j * 32);
+          d[0] = make_uint4(nibble_bytes(w, 0), nibble_bytes(w, 1),
+                            nibble_bytes(w, 2), nibble_bytes(w, 3));
+          d[1] = make_uint4(nibble_bytes(w, 4), nibble_bytes(w, 5),
+                            nibble_bytes(w, 6), nibble_bytes(w, 7));
         }
       }
     }
-    __syncthreads();  // the next pass overwrites qs
   }
-  if (!row_ok) return;
+};
+
+// The running top-k of a CTA: per query a sorted list of up to k keys, a
+// staging list, and the key a candidate must beat (kMaxKey until full).
+struct TopK {
+  u64* list;   // [kBQ][k]
+  u64* stage;  // [kBQ][kSC]
+  u64* thr;    // [kBQ]
+  int* lcnt;   // [kBQ]
+  int* scnt;   // [kBQ]
+  int k;
+};
+
+__device__ __forceinline__ u64 make_key(float d, long long n) {
+  return (static_cast<u64>(__float_as_uint(d)) << 32) |
+         static_cast<u64>(static_cast<uint32_t>(n));
+}
+
+__device__ __forceinline__ float distance(int a, int pq, int px,
+                                          bool jaccard) {
+  if (!jaccard) return static_cast<float>(pq + px - 2 * a);
+  const int uni = max(pq + px - a, 1);
+  return __fsub_rn(1.0f, __fdiv_rn(static_cast<float>(a),
+                                   static_cast<float>(uni)));
+}
+
+// Merge query r's c staged keys (1 <= c <= kSC) into its list; one warp.
+__device__ void merge_query(const TopK& t, int r, int c, int lane) {
+  u64* L = t.list + r * t.k;
+  u64* S = t.stage + r * kSC;
+  const int len = t.lcnt[r];
+  u64 s = lane < c ? S[lane] : kMaxKey;
+  // bitonic sort of the 32 staged keys, ascending over lanes
 #pragma unroll
-  for (int t = 0; t < kTQ; ++t)
-    if (q0 + t < Q) out[static_cast<long long>(q0 + t) * N + n] = acc[t];
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const u64 o = __shfl_xor_sync(0xffffffffu, s, stride);
+      const bool up = (lane & size) == 0 || size == 32;
+      const bool low = (lane & stride) == 0;
+      s = (low == up) ? (o < s ? o : s) : (o > s ? o : s);
+    }
+  }
+  __syncwarp();
+  S[lane] = s;
+  __syncwarp();
+  // new rank of a staged key: its rank among staged + the list keys below
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (L[mid] < s) lo = mid + 1; else hi = mid;
+  }
+  const int rs = lane + lo;
+  u64 lv[kMaxK / 32];
+  int rl[kMaxK / 32];
+#pragma unroll
+  for (int j = 0; j < kMaxK / 32; ++j) {
+    const int i = lane + 32 * j;
+    rl[j] = t.k;  // dropped
+    if (i < len) {
+      lv[j] = L[i];
+      int a = 0, b = c;
+      while (a < b) {
+        const int mid = (a + b) >> 1;
+        if (S[mid] < lv[j]) a = mid + 1; else b = mid;
+      }
+      rl[j] = i + a;
+    }
+  }
+  __syncwarp();  // every read of L before any write
+  if (lane < c && rs < t.k) L[rs] = s;
+#pragma unroll
+  for (int j = 0; j < kMaxK / 32; ++j)
+    if (rl[j] < t.k) L[rl[j]] = lv[j];
+  __syncwarp();
+  if (lane == 0) {
+    const int nl = min(len + c, t.k);
+    t.lcnt[r] = nl;
+    t.thr[r] = nl == t.k ? L[t.k - 1] : kMaxKey;
+    t.scnt[r] = 0;
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ void merge_all(const TopK& t) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kBQ; r += kWarps) {
+    const int c = t.scnt[r];
+    if (c > 0) merge_query(t, r, min(c, kSC), lane);
+  }
+}
+
+__device__ __forceinline__ void stage_key(const TopK& t, int r, u64 key,
+                                          u64& pend, int bit) {
+  const int slot = atomicAdd(&t.scnt[r], 1);
+  if (slot < kSC) t.stage[r * kSC + slot] = key;
+  else pend |= 1ull << bit;
+}
+
+template <bool kB1, int VEC, bool kTopK>
+__global__ void __launch_bounds__(kThreads)
+scan_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ x,
+            const int* __restrict__ pop_q, const int* __restrict__ pop_x,
+            int Q, long long N, int W, long long rows_per_split, int nsplit,
+            int* __restrict__ out, u64* __restrict__ cand, int k,
+            int jaccard) {
+  using R = Route<kB1>;
+  extern __shared__ __align__(16) char smem[];
+  char* sop = smem;
+  int* spop = reinterpret_cast<int*>(smem + kRows * R::kRS);
+  TopK t;
+  t.k = k;
+  t.list = reinterpret_cast<u64*>(spop + kRows);
+  t.stage = t.list + kBQ * k;
+  t.thr = t.stage + kBQ * kSC;
+  t.lcnt = reinterpret_cast<int*>(t.thr + kBQ);
+  t.scnt = t.lcnt + kBQ;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int split = blockIdx.x;
+  const int q0 = blockIdx.y * kBQ;
+  const long long r0 = static_cast<long long>(split) * rows_per_split;
+  const long long r1 = min(N, r0 + rows_per_split);
+  const int ntiles =
+      r1 > r0 ? static_cast<int>((r1 - r0 + kBN - 1) / kBN) : 0;
+  const int nchunks = (W + R::kCW - 1) / R::kCW;
+  const int steps = ntiles * nchunks;
+
+  if (kTopK) {
+    for (int r = threadIdx.x; r < kBQ; r += kThreads) {
+      t.thr[r] = kMaxKey;
+      t.lcnt[r] = 0;
+      t.scnt[r] = 0;
+    }
+  }
+
+  Loader<kB1, VEC> ld;
+  if (steps > 0) ld.load(q, x, q0, Q, r0, r1, W, 0);
+  int acc[4][4][4];
+
+  for (int s = 0; s < steps; ++s) {
+    const int tile = s / nchunks, ch = s - tile * nchunks;
+    const long long n0 = r0 + static_cast<long long>(tile) * kBN;
+    __syncthreads();  // the last chunk's operands and pops are consumed
+    ld.store(sop);
+    if (ch == 0) {
+      for (int i = threadIdx.x; i < kRows; i += kThreads) {
+        if (i < kBQ) {
+          spop[i] = q0 + i < Q ? pop_q[q0 + i] : 0;
+        } else {
+          const long long n = n0 + (i - kBQ);
+          spop[i] = n < r1 ? pop_x[n] : 0;
+        }
+      }
+    }
+    __syncthreads();
+    if (s + 1 < steps) {
+      const int t2 = (s + 1) / nchunks, c2 = s + 1 - t2 * nchunks;
+      ld.load(q, x, q0, Q, r0 + static_cast<long long>(t2) * kBN, r1, W,
+              c2 * R::kCW);
+    }
+    if (ch == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mi][nj][c] = 0;
+    }
+    // k-steps holding words below W (the last chunk may hold fewer)
+    const int wr = min(R::kCW, W - ch * R::kCW);
+    const int ksteps = (wr * (R::kRB / R::kCW) + 31) / 32;
+#pragma unroll
+    for (int ks = 0; ks < R::kSteps; ++ks) {
+      if (ks >= ksteps) break;
+      uint32_t a[4][4], b[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4(a[mi], sop + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 R::kRS + ks * 32 + (lane >> 4) * 16);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+        ldsm_x4(b[nb], sop + (kBQ + warp * 32 + nb * 16 + (lane & 7) +
+                              (lane >> 4) * 8) * R::kRS +
+                           ks * 32 + ((lane >> 3) & 1) * 16);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+          mma<kB1>(acc[mi][nj], a[mi], b[nj >> 1][(nj & 1) * 2],
+                   b[nj >> 1][(nj & 1) * 2 + 1]);
+    }
+    if (ch != nchunks - 1) continue;
+
+    // ---- epilogue: acc[mi][nj][c] is query row mi*16 + g + 8*(c>>1),
+    //      base row warp*32 + nj*8 + 2*tg + (c&1) of the tile
+    if (!kTopK) {
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mi * 16 + g + 8 * h;
+          if (q0 + r >= Q) continue;
+          const int pq = spop[r];
+          int* orow = out + static_cast<long long>(q0 + r) * N;
+#pragma unroll
+          for (int nj = 0; nj < 4; ++nj) {
+            const int col = warp * 32 + nj * 8 + 2 * tg;
+            const long long n = n0 + col;
+            const int v0 = pq + spop[kBQ + col] - 2 * acc[mi][nj][2 * h];
+            const int v1 =
+                pq + spop[kBQ + col + 1] - 2 * acc[mi][nj][2 * h + 1];
+            if ((N & 1) == 0) {  // n even, N even: both or neither valid
+              if (n < r1)
+                *reinterpret_cast<int2*>(orow + n) = make_int2(v0, v1);
+            } else {
+              if (n < r1) orow[n] = v0;
+              if (n + 1 < r1) orow[n + 1] = v1;
+            }
+          }
+        }
+      continue;
+    }
+
+    // top-k, first pass: the list's keys all come from earlier tiles, with
+    // smaller ids, so a row of this tile beats the k-th key only with a
+    // strictly smaller distance. Hamming compares px - 2a < d_k - pq;
+    // jaccard skips the division where a/u is clearly below 1 - d_k.
+    const bool jac = jaccard != 0;
+    int hl[4][2], pqr[4][2];
+    float dk[4][2], lim[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mi * 16 + g + 8 * h;
+        const u64 tk = t.thr[r];
+        const float d = __uint_as_float(static_cast<uint32_t>(tk >> 32));
+        pqr[mi][h] = spop[r];
+        const bool full = tk != kMaxKey;
+        const bool live = q0 + r < Q;
+        hl[mi][h] = !live ? -0x7fffffff
+                          : full ? static_cast<int>(d) - pqr[mi][h]
+                                 : 0x7fffffff;
+        dk[mi][h] = full ? d : __int_as_float(0x7f800000);
+        lim[mi][h] = !live ? __int_as_float(0x7f800000)
+                           : full ? 1.0f - d - 1e-6f
+                                  : __int_as_float(0xff800000);
+      }
+    u64 pend = 0;
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int col = warp * 32 + nj * 8 + 2 * tg + cc;
+        const long long n = n0 + col;
+        if (n >= r1) continue;
+        const int px = spop[kBQ + col];
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int a = acc[mi][nj][2 * h + cc];
+            const int r = mi * 16 + g + 8 * h;
+            const int bit = (mi * 2 + h) * 8 + nj * 2 + cc;
+            if (!jac) {
+              if (px - 2 * a < hl[mi][h])
+                stage_key(t, r, make_key(static_cast<float>(
+                    pqr[mi][h] + px - 2 * a), n), pend, bit);
+            } else {
+              const float u =
+                  static_cast<float>(max(pqr[mi][h] + px - a, 1));
+              if (static_cast<float>(a) >= lim[mi][h] * u) {
+                const float d = distance(a, pqr[mi][h], px, true);
+                if (d < dk[mi][h]) stage_key(t, r, make_key(d, n), pend, bit);
+              }
+            }
+          }
+      }
+    // a staging list merges only when it overflows; the candidates that
+    // found it full retry against the new k-th key (full key compare: ids
+    // of this tile may be in the list now)
+    while (__syncthreads_or(pend != 0)) {
+      merge_all(t);
+      __syncthreads();
+      u64 still = 0;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int bit = (mi * 2 + h) * 8 + nj * 2 + cc;
+              if (!((pend >> bit) & 1)) continue;
+              const int col = warp * 32 + nj * 8 + 2 * tg + cc;
+              const int r = mi * 16 + g + 8 * h;
+              const u64 key = make_key(
+                  distance(acc[mi][nj][2 * h + cc], pqr[mi][h],
+                           spop[kBQ + col], jac),
+                  n0 + col);
+              if (key < t.thr[r]) stage_key(t, r, key, still, bit);
+            }
+      pend = still;
+    }
+  }
+
+  if (kTopK) {
+    __syncthreads();
+    merge_all(t);  // what is still staged
+    __syncthreads();
+    for (int i = threadIdx.x; i < kBQ * k; i += kThreads) {
+      const int r = i / k, j = i - r * k;
+      if (q0 + r < Q)
+        cand[(static_cast<long long>(q0 + r) * nsplit + split) * k + j] =
+            j < t.lcnt[r] ? t.list[r * k + j] : kMaxKey;
+    }
+  }
+}
+
+template <bool kB1>
+int smem_bytes(bool topk, int k) {
+  int b = kRows * Route<kB1>::kRS + kRows * 4;
+  if (topk) b += kBQ * (k + kSC + 1) * 8 + 2 * kBQ * 4;
+  return b;
+}
+
+template <bool kB1, int VEC, bool kTopK>
+int launch(const void* q, const void* x, const void* pop_q,
+           const void* pop_x, void* out, void* cand, int Q, long long N,
+           int W, long long rows_per_split, int nsplit, int k, int jaccard,
+           cudaStream_t st) {
+  auto kern = scan_kernel<kB1, VEC, kTopK>;
+  const int bytes = smem_bytes<kB1>(kTopK, k);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned int>(nsplit),
+                  static_cast<unsigned int>((Q + kBQ - 1) / kBQ));
+  kern<<<grid, kThreads, bytes, st>>>(
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(x),
+      static_cast<const int*>(pop_q), static_cast<const int*>(pop_x), Q, N,
+      W, rows_per_split, nsplit, static_cast<int*>(out),
+      static_cast<u64*>(cand), k, jaccard);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTopK>
+int dispatch(int route, const void* q, const void* x, const void* pop_q,
+             const void* pop_x, void* out, void* cand, int Q, long long N,
+             int W, long long rows_per_split, int nsplit, int k,
+             int jaccard, void* stream) {
+  if (Q == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  if (W <= 0 || nsplit <= 0 || rows_per_split <= 0 ||
+      rows_per_split % kBN != 0 || (Q + kBQ - 1) / kBQ > 65535 ||
+      (kTopK && (k < 1 || k > kMaxK)) || (route != 0 && route != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec4 = W % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define HS_ARGS q, x, pop_q, pop_x, out, cand, Q, N, W, rows_per_split, \
+                nsplit, k, jaccard, st
+  if (route == 1)
+    return vec4 ? launch<true, 4, kTopK>(HS_ARGS)
+                : launch<true, 1, kTopK>(HS_ARGS);
+  return vec4 ? launch<false, 4, kTopK>(HS_ARGS)
+              : launch<false, 1, kTopK>(HS_ARGS);
+#undef HS_ARGS
 }
 
 }  // namespace
 
-// q [Q, W], x [N, W] packed uint32 words (row-major, contiguous); out [Q, N]
-// int32. vec: 4 (16-byte loads: W % 4 == 0 and x 16-byte aligned) or 1.
-// Returns a cudaError_t.
-extern "C" int hamming_scan_launch(int vec, const void* q, const void* x,
+// q [Q, W], x [N, W] packed 32-bit words (row-major, contiguous); pop_q [Q],
+// pop_x [N] int32 row popcounts; route 1 = b1, 0 = int8. Rows are cut into
+// nsplit ranges of rows_per_split (a multiple of 128), one CTA per range and
+// 64-query tile. Each returns a cudaError_t.
+//
+// All pairs: out [Q, N] int32 hamming counts.
+extern "C" int hamming_scan_launch(int route, const void* q, const void* x,
+                                   const void* pop_q, const void* pop_x,
                                    void* out, int Q, long long N, int W,
+                                   long long rows_per_split, int nsplit,
                                    void* stream) {
-  if (Q == 0 || N == 0) return static_cast<int>(cudaGetLastError());
-  if (W <= 0 || (vec != 1 && vec != 4) || (vec == 4 && W % 4 != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long gx = (N + kThreads - 1) / kThreads;
-  const int gy = (Q + kTQ - 1) / kTQ;
-  if (gx > 0x7fffffffLL || gy > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned int>(gx), static_cast<unsigned int>(gy));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t* qp = static_cast<const uint32_t*>(q);
-  const uint32_t* xp = static_cast<const uint32_t*>(x);
-  int* op = static_cast<int*>(out);
-  if (vec == 4)
-    hamming_scan_kernel<4><<<grid, kThreads, 0, st>>>(qp, xp, op, Q, N, W);
-  else
-    hamming_scan_kernel<1><<<grid, kThreads, 0, st>>>(qp, xp, op, Q, N, W);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(route, q, x, pop_q, pop_x, out, nullptr, Q, N, W,
+                         rows_per_split, nsplit, 1, 0, stream);
+}
+
+// Top-k: cand [Q, nsplit, k] uint64 keys (distance f32 bits << 32 | id),
+// each range's k smallest ascending, padded with 2^63 - 1; 1 <= k <= 128;
+// jaccard 0 (hamming) or 1.
+extern "C" int hamming_topk_launch(int route, const void* q, const void* x,
+                                   const void* pop_q, const void* pop_x,
+                                   void* cand, int Q, long long N, int W,
+                                   long long rows_per_split, int nsplit,
+                                   int k, int jaccard, void* stream) {
+  return dispatch<true>(route, q, x, pop_q, pop_x, nullptr, cand, Q, N, W,
+                        rows_per_split, nsplit, k, jaccard, stream);
 }

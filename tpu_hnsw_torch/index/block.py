@@ -39,6 +39,7 @@ from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import expand as X
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.parallel import kmeans as KM
+from tpu_hnsw_torch.utils.device import entry_device
 
 #: the kernel loads 16 bytes at a time; scoring-copy rows are padded to it
 ROW_ALIGN_BYTES = 16
@@ -433,7 +434,8 @@ class BlockHnswIndex:
     scans all centroids at any block count; "auto" does so while
     B <= EXACT_ROUTING_MAX and would switch to graph routing above it,
     which is not ported ("graph" likewise). ``device`` holds every
-    tensor of the index (CPU runs the kernel's plain version). Attributes
+    tensor of the index: the card unless the caller names another
+    (``"cpu"`` runs the kernel's plain version). Attributes
     ``two_stage`` (scoring copy + exact rerank), ``rerank_width`` (rows per
     query kept by stage 1) and ``score_dtype`` ("int8" | "bf16", the
     scoring copy made at build) may be set before ``build``.
@@ -458,7 +460,7 @@ class BlockHnswIndex:
         self.cfg = config
         self.block_size = int(block_size)
         self.routing = routing
-        self.device = torch.device(device or "cpu")
+        self.device = entry_device(device)
         self.two_stage = True
         self.rerank_width = 40
         self.score_dtype = "int8"

@@ -15,6 +15,7 @@ import torch
 from tpu_hnsw_torch.config import Metric
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import topk as T
+from tpu_hnsw_torch.utils.device import entry_device, require
 
 
 def _stream_search(q, xs, xs_sq, valid, k: int, metric: Metric, tile: int):
@@ -66,7 +67,8 @@ def _rerank(q, x, cand_ids, metric: Metric, k: int, n: int):
 
 
 class FlatIndex:
-    """Exact KNN over a device-resident vector table."""
+    """Exact KNN over a device-resident vector table; ``device`` holds it
+    (default: the card; raises without one)."""
 
     BLOCK = 131072
 
@@ -74,7 +76,7 @@ class FlatIndex:
                  device=None):
         if not isinstance(vectors, torch.Tensor):
             vectors = torch.from_numpy(np.asarray(vectors, np.float32))
-        vectors = vectors.to(device=device or vectors.device,
+        vectors = vectors.to(device=require(entry_device(device)),
                              dtype=dtype or vectors.dtype)
         if metric.needs_normalized:
             vectors = D.l2_normalize(vectors)

@@ -61,15 +61,17 @@ def build_library(name: str) -> tuple[str, str]:
     return path, proc.stdout + proc.stderr
 
 
-def load_library(name: str, symbol: str, argtypes: list) -> ctypes.CDLL:
+def load_library(name: str, symbols: dict[str, list]) -> ctypes.CDLL:
     """Build (if needed) and load a kernel library once per process, with
-    ``argtypes`` declared on its launch function ``symbol`` (returns int)."""
+    ``argtypes`` declared on each of its launch functions (``symbols``:
+    name -> argtypes; each returns int)."""
     lib = _loaded.get(name)
     if lib is None:
         path, _ = build_library(name)
         lib = ctypes.CDLL(path)
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in symbols.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

@@ -3,9 +3,9 @@
 
 The reference's ``bit`` type distances (upstream ``pgvector:src/bitvec.c``
 ``hamming_distance``/``jaccard_distance``) over bit-packed 32-bit words.
-:class:`BinaryFlatIndex` is the exact scan; on a CUDA tensor its distances
-come from the ``hamming_scan`` kernel (``ops/hamming.py``), jaccard too,
-through ``|a&b| = (|a| + |b| - h) / 2`` and ``|a|b| = (|a| + |b| + h) / 2``.
+:class:`BinaryFlatIndex` is the exact scan: on the card its top-k comes
+from the fused ``hamming_topk`` kernel (``ops/hamming.py``), hamming and
+jaccard, ordered by (distance, id) as the reference's ``lax.top_k``.
 """
 
 from __future__ import annotations
@@ -16,10 +16,15 @@ import torch
 from tpu_hnsw_torch.ops import hamming as H
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.ops.hamming import popcount, words  # noqa: F401
+from tpu_hnsw_torch.utils.device import entry_device, require
 
-# [chunk, N] entries of the distance matrix per query chunk of the flat
-# scan: 2^28 int32 is 1 GB (256 queries at N = 1M)
+# [chunk, N] entries of the distance matrix per query chunk of the
+# all-pairs scan (k above the fused top-k's limit): 2^28 int32 is 1 GB
+# (268 queries at N = 1M)
 _SCAN_CHUNK_ELEMS = 1 << 28
+# queries per fused top-k call: its [Q, ranges * k] int64 candidates stay
+# within 64 MB (many queries leave one row range per CTA)
+_TOPK_CHUNK_Q = 1 << 16
 _PACK_CHUNK_ROWS = 1 << 16
 
 
@@ -90,18 +95,16 @@ class BinaryFlatIndex:
     """Exact binary KNN over packed vectors — hamming (``bit_hamming_ops``)
     or jaccard (``bit_jaccard_ops``). ``packed`` is ``[N, W]`` words (numpy
     uint32 or an int32/uint32 tensor); ``device`` holds the table (default:
-    the tensor's device, or CPU)."""
+    the card; raises without one)."""
 
     def __init__(self, packed, metric: str = "hamming", device=None):
         if metric not in ("hamming", "jaccard"):
             raise ValueError("metric must be hamming or jaccard")
         self.metric = metric
-        if device is None:
-            device = packed.device if isinstance(packed, torch.Tensor) else "cpu"
-        self.device = torch.device(device)
+        self.device = require(entry_device(device))
         self.packed = as_words(packed, self.device)
-        # row popcounts, for jaccard through the hamming count
-        self.pop = popcount(self.packed).sum(-1, dtype=torch.int32)
+        # row popcounts: the kernel's |x| (hamming and jaccard)
+        self.pop = H.row_popcount(self.packed)
 
     @classmethod
     def from_bits(cls, bits, metric: str = "hamming",
@@ -110,25 +113,27 @@ class BinaryFlatIndex:
 
     def search_device(self, q_packed, k: int = 10):
         """(distances f32 ``[Q, k]``, ids int32 ``[Q, k]``) tensors,
-        ascending; queries are chunked so ``[chunk, N]`` stays bounded."""
+        ascending by (distance, id). Up to ``hamming.TOPK_MAX_K`` the fused
+        top-k serves; above it, the all-pairs scan in query chunks that
+        keep ``[chunk, N]`` bounded."""
         q = as_words(q_packed, self.device)
-        N = self.packed.shape[0]
-        step = max(1, _SCAN_CHUNK_ELEMS // max(N, 1))
+        pq = H.row_popcount(q)
         ds, ids = [], []
-        for s in range(0, q.shape[0], step):
-            qc = q[s:s + step]
-            h = H.hamming_scan(qc, self.packed)
-            if self.metric == "hamming":
-                d = h.float()  # exact: counts stay below 2^24
-            else:
-                pa = popcount(qc).sum(-1, dtype=torch.int32)[:, None]
-                tot = pa + self.pop[None, :]
-                inter = torch.div(tot - h, 2, rounding_mode="floor")
-                union = torch.div(tot + h, 2, rounding_mode="floor")
-                d = 1.0 - inter.float() / torch.clamp_min(union, 1).float()
-            v, i = T.topk_smallest(d, k)
-            ds.append(v)
-            ids.append(i.to(torch.int32))
+        if k <= H.TOPK_MAX_K:
+            for s in range(0, q.shape[0], _TOPK_CHUNK_Q):
+                e = s + _TOPK_CHUNK_Q
+                d, i = H.hamming_topk(q[s:e], self.packed, pq[s:e],
+                                      self.pop, k, self.metric)
+                ds.append(d)
+                ids.append(i)
+        else:
+            step = max(1, _SCAN_CHUNK_ELEMS // max(self.packed.shape[0], 1))
+            for s in range(0, q.shape[0], step):
+                h = H.hamming_scan(q[s:s + step], self.packed)
+                d, i = T.topk_smallest_by_index(
+                    H.distances(h, pq[s:s + step], self.pop, self.metric), k)
+                ds.append(d)
+                ids.append(i)
         return torch.cat(ds), torch.cat(ids)
 
     def search(self, q_packed, k: int = 10):

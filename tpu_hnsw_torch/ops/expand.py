@@ -139,7 +139,7 @@ def expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
     nchunks = row_bytes // (4 * words)
     lanes = min(32, 1 << (nchunks.bit_length() - 1))
     out = torch.empty((Q, p, S), dtype=torch.float32, device=dev)
-    lib = _nvcc.load_library(NAME, "expand_score_launch", _ARGTYPES)
+    lib = _nvcc.load_library(NAME, {"expand_score_launch": _ARGTYPES})
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.expand_score_launch(

@@ -18,3 +18,27 @@ def topk_smallest_fast(
     the exact :func:`topk_smallest`. Kept as its own name so each call site
     maps onto the reference's."""
     return topk_smallest(scores, k)
+
+
+def index_keys(d: torch.Tensor) -> torch.Tensor:
+    """One int64 key per entry of non-negative f32 ``d [..., n]``: the
+    float's bit pattern (monotone for d >= 0) above the index along the
+    last axis. Keys are unique, and their order is (distance, index)."""
+    n = d.shape[-1]
+    idx = torch.arange(n, dtype=torch.int64, device=d.device)
+    return (d.contiguous().view(torch.int32).to(torch.int64) << 32) | idx
+
+
+def decode_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`index_keys` back to (f32 distances, int32 indices)."""
+    d = (keys >> 32).to(torch.int32).view(torch.float32)
+    return d, (keys & 0xFFFFFFFF).to(torch.int32)
+
+
+def topk_smallest_by_index(d: torch.Tensor, k: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Smallest-k of non-negative f32 ``d`` along the last axis, ascending
+    by (value, index): ``lax.top_k(-d, k)``'s order, ties to the lower
+    index. Returns (values f32, indices int32)."""
+    kk = torch.topk(index_keys(d), k, dim=-1, largest=False, sorted=True)
+    return decode_keys(kk.values)
