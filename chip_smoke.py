@@ -23,19 +23,31 @@ plain version):
 6. the binary path at full width: ``binary_quantize`` of
    ``synthetic_clustered(1_000_000, 1536, n_queries=4096, seed=42)`` (the
    shape of dbpedia-entities-openai-1M, binary-quantized as pgvector's
-   README does). ``hamming_scan`` against its plain version at
-   1024 x 1M x 48 words, a ragged 47, and the first and last query chunks
-   the flat oracle gives it (partly filled query tiles); the
-   ``BinaryFlatIndex`` oracle; ``BinaryHnswIndex`` hamming (probe grid to
-   tie-aware recall@10 >= 0.95, exact distances, QPS) and jaccard
-   (rerank_k=100, exact distances); ``expand_score`` at d=1536 on each
-   index's int8 copy (hamming L2 with a mask, jaccard cosine);
-7. print the kernel table as one JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   README does). Both hamming entries against their plain versions,
+   exactly: ``hamming_scan`` at 1024 x 1M x 48 words, a ragged 47, and the
+   all-pairs branch's first and last query chunks (partly filled query
+   tiles); ``hamming_topk`` for hamming and jaccard at Q=1024 and a ragged
+   Q=76, k in {1, 10, 100}, and at W=47 (k in {10, 100}); beside them
+   ``torch._int_mm`` of the 0/1 int8 expansion, bare and with the affine
+   step (the library yardsticks), with ``nvidia-smi`` clocks and power
+   sampled during the timings. Then the path itself: the
+   ``BinaryFlatIndex`` oracle (fused top-k), its QPS and peak extra memory
+   over 4096 queries for both metrics beside the all-pairs design (whose
+   launches, a comparison, are not counted), one search with k above the
+   fused limit;
+   ``BinaryHnswIndex`` hamming (probe grid to tie-aware recall@10 >= 0.95,
+   exact distances, QPS) and jaccard (rerank_k=100, exact distances);
+   ``expand_score`` at d=1536 on each index's int8 copy (hamming L2 with a
+   mask, jaccard cosine);
+7. print the kernel table as one JSON line (launches per path, times,
+   bounds), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Each path's kernel launch counters are set to 0 just before it and read
 just after it; launches made to compare a kernel with its plain version
-are not counted.
+are not counted. ``bound_ms`` is the larger of the bytes a call must move
+(each input read once, each output written once) over 3.35 TB/s and its
+operations over the data sheet's peak for their type (int8: 1,979 TOP/s;
+bf16: 989 TFLOP/s; f32 outside the tensor cores: 67 TFLOP/s).
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ from tpu_hnsw_torch.ops import _nvcc
 from tpu_hnsw_torch.ops import bitops as BO
 from tpu_hnsw_torch.ops import expand as X
 from tpu_hnsw_torch.ops import hamming as H
+from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.ops.vector_ops import binary_quantize
 from tpu_hnsw_torch.utils.recall import recall_at_k
 
@@ -73,6 +86,9 @@ KERNEL_Q = 1024
 # order only; bf16 too, with a looser bound for its bf16-rounded operands
 RTOL = {"int8": 1e-6, "float32": 1e-5, "bfloat16": 1e-3}
 BIN_DIM = 1536             # dbpedia-entities-openai-1M's width, in bits
+RAGGED_Q = 76              # a query count that ends in a partly filled tile
+HBM_BPS = 3.35e12          # H100 SXM data sheet
+PEAK_OPS = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
 FILTER_SEED, FILTER_SHARE = 17, 0.10  # bench.py:185-196
 N_ADD = 10_000
 
@@ -83,6 +99,41 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    """(least ms, what bounds it) for a call moving ``nbytes`` and doing
+    ``ops`` operations of ``dtype``."""
+    b, o = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[dtype] * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+class Sampler:
+    """``nvidia-smi`` clocks, power and temperature every 100 ms while the
+    block runs; the process is stopped on exit."""
+
+    FIELDS = "clocks.sm,power.draw,power.limit,temperature.gpu"
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={self.FIELDS}",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate()
+        rows = [[float(v) for v in line.split(",")]
+                for line in out.strip().splitlines()
+                if line.count(",") == 3 and "N/A" not in line]
+        self.summary = {"samples": len(rows)}
+        for i, name in enumerate(self.FIELDS.split(",")):
+            vals = [r[i] for r in rows]
+            if vals:
+                self.summary[name] = {"min": min(vals), "max": max(vals),
+                                      "median": float(np.median(vals))}
+        return False
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -97,6 +148,16 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sampled_ms(fn, seconds: float = 1.0) -> tuple[float, dict]:
+    """cuda_ms over enough calls to fill about ``seconds``, with
+    ``nvidia-smi`` sampling that window."""
+    est = cuda_ms(fn, 3, 1)
+    reps = max(5, int(seconds * 1e3 / max(est, 1e-3)))
+    with Sampler() as smi:
+        ms = cuda_ms(fn, reps, 0)
+    return ms, smi.summary
 
 
 def kernel_phase(base: np.ndarray, queries: np.ndarray, card: str,
@@ -168,12 +229,23 @@ def expand_variant(args, kw, dtype, metric, card, cscale, shape) -> dict:
         "plain_ms": cuda_ms(lambda: X.expand_score_reference(*args, **kw),
                             5, 1),
     }
-    bl = args[0]
-    gb = shape["Q"] * shape["p"] * shape["S"] * bl.shape[2] * bl.element_size()
-    rec["kernel_GBps"] = gb / rec["ms"] / 1e6
+    bl, bids = args[0], args[5]
+    Q, p = bids.shape
+    S, dp, es = bl.shape[1], bl.shape[2], bl.element_size()
+    rec["kernel_GBps"] = Q * p * S * dp * es / rec["ms"] / 1e6
+    # bound: each distinct probed block's rows, norms, ids (scale, mask)
+    # read once, the queries and bids once, the scores written once
+    per_block = S * dp * es + 8 * S + 4 * ("score_scale" in kw) \
+        + S * ("allowed" in kw)
+    nbytes = (torch.unique(bids).numel() * per_block
+              + Q * dp * es + 4 * Q * (1 + ("q_scale" in kw))
+              + 8 * Q * p + 4 * Q * p * S)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nbytes, 2 * Q * p * S * shape["d"], dtype)
     print(f"kernel {dtype} {metric.value} p={shape['p']} d={shape['d']}"
           f"{' masked' if rec['masked'] else ''}: {rec['ms']:.4f} ms "
-          f"(plain {rec['plain_ms']:.4f} ms, {rec['kernel_GBps']:.1f} GB/s "
+          f"(plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"by {rec['bound_by']}, {rec['kernel_GBps']:.1f} GB/s "
           f"of block rows), max_abs_err {rec['max_abs_err']:.3g}, "
           f"rel {rel:.3g} [{card}]", flush=True)
     assert rel <= RTOL[dtype], rec
@@ -368,10 +440,18 @@ def lifecycle_phase(idx, base: np.ndarray, queries: np.ndarray, chosen: int,
     return out
 
 
-def hamming_variant(q, x, card: str, what: str) -> dict:
+def hamming_bound(Q: int, N: int, W: int, out_bytes: int):
+    """Both hamming entries: the words and row popcounts read once, the
+    output written once; the 2 Q N bits operations as int8 MACs."""
+    return bound(4 * (Q + N) * (W + 1) + out_bytes, 2 * Q * N * W * 32,
+                 "int8")
+
+
+def hamming_variant(q, x, card: str, what: str, keep: bool = False):
     """hamming_scan against its plain version on the same card tensors:
     exactly equal int32. The plain version's time is that of the full-size
-    call the equality check makes (CUDA events, one call)."""
+    call the equality check makes (CUDA events, one call). With ``keep``
+    the plain counts are returned too."""
     Q, W = q.shape
     n = x.shape[0]
     got = H.hamming_scan(q, x)
@@ -383,23 +463,168 @@ def hamming_variant(q, x, card: str, what: str) -> dict:
     torch.cuda.synchronize()
     equal = torch.equal(got, want)
     err = 0 if equal else (got.long() - want.long()).abs().max().item()
-    del got, want
+    del got
+    ms, smi = sampled_ms(lambda: H.hamming_scan(q, x))
     rec = {"Q": Q, "N": n, "W": W, "bits": W * 32, "shape_of": what,
-           "exact_equal": equal, "max_abs_err": err,
-           "ms": cuda_ms(lambda: H.hamming_scan(q, x), 5, 1),
-           "plain_ms": start.elapsed_time(end)}
-    rec["Gpopc_per_s"] = Q * n * W / rec["ms"] / 1e6
-    print(f"hamming_scan Q={Q} N={n} W={W} ({what}): {rec['ms']:.3f} ms "
-          f"(plain {rec['plain_ms']:.1f} ms), {rec['Gpopc_per_s']:.0f} G "
-          f"popcounts/s, exactly equal {equal} [{card}]", flush=True)
+           "exact_equal": equal, "max_abs_err": err, "ms": ms,
+           "plain_ms": start.elapsed_time(end), "smi": smi}
+    rec["bound_ms"], rec["bound_by"] = hamming_bound(Q, n, W, 4 * Q * n)
+    rec["TOPs_int8_equiv"] = 2 * Q * n * W * 32 / ms / 1e9
+    print(f"hamming_scan Q={Q} N={n} W={W} ({what}): {ms:.3f} ms (plain "
+          f"{rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.3f} ms by "
+          f"{rec['bound_by']}), {rec['TOPs_int8_equiv']:.0f} TOP/s "
+          f"int8-equivalent, exactly equal {equal}, nvidia-smi "
+          f"{json.dumps(smi)} [{card}]", flush=True)
     assert equal, rec
+    return (rec, want) if keep else rec
+
+
+def topk_variants(q, x, h_ref, scan_plain_ms: float, card: str,
+                  ks=(1, 10, 100), nqs=None) -> list:
+    """hamming_topk against its plain version on the same card tensors, at
+    ``nqs`` query counts (default: Q and RAGGED_Q), both metrics, k in
+    ``ks``: distances and ids exactly equal. The plain version starts from
+    ``h_ref``, the plain all-pairs counts of these queries; its time at Q
+    is that call's (``scan_plain_ms``) plus the distance and keyed top-k
+    passes."""
+    Q, W = q.shape
+    n = x.shape[0]
+    pq, px = H.row_popcount(q), H.row_popcount(x)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    recs = []
+    for metric in H.METRICS:
+        start.record()
+        d_ref = H.distances(h_ref, pq, px, metric)
+        end.record()
+        torch.cuda.synchronize()
+        dist_ms = start.elapsed_time(end)
+        for k in ks:
+            for nq in nqs or (Q, RAGGED_Q):
+                start.record()
+                want = T.topk_smallest_by_index(d_ref[:nq], k)
+                end.record()
+                got = H.hamming_topk(q[:nq], x, pq[:nq], px, k, metric)
+                torch.cuda.synchronize()
+                equal = (torch.equal(got[0], want[0])
+                         and torch.equal(got[1], want[1]))
+                call = (lambda: H.hamming_topk(q[:nq], x, pq[:nq], px, k,
+                                               metric))
+                ms, smi = sampled_ms(call) if nq == Q else (
+                    cuda_ms(call, 10), None)
+                rec = {"metric": metric, "k": k, "Q": nq, "N": n, "W": W,
+                       "exact_equal": equal,
+                       "max_abs_err": (got[0] - want[0]).abs().max().item(),
+                       "ms": ms, "smi": smi,
+                       "plain_ms": (scan_plain_ms + dist_ms
+                                    + start.elapsed_time(end))
+                       if nq == Q else None}
+                rec["bound_ms"], rec["bound_by"] = hamming_bound(
+                    nq, n, W, 8 * nq * k)
+                print(f"hamming_topk {metric} k={k} Q={nq} N={n} W={W}: "
+                      f"{ms:.3f} ms (plain {rec['plain_ms']} ms, bound "
+                      f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}), "
+                      f"exactly equal {equal}, nvidia-smi "
+                      f"{json.dumps(smi)} [{card}]", flush=True)
+                assert equal, rec
+                recs.append(rec)
+        del d_ref
+    return recs
+
+
+def library_yardstick(q, x, h_ref, card: str) -> dict:
+    """The one library call for the and-counts: ``torch._int_mm`` of the
+    0/1 int8 expansions (1.5 GB for the table, built here and freed), with
+    hamming's affine step; checked equal to the plain counts, then timed.
+    The port never calls it."""
+    Q, W = q.shape
+    n = x.shape[0]
+    shifts = torch.arange(32, device=q.device, dtype=torch.int32)
+
+    def spread(w):
+        return ((w[:, :, None] >> shifts) & 1).to(torch.int8).reshape(
+            w.shape[0], W * 32)
+
+    qe = spread(q)
+    xe = torch.empty((n, W * 32), dtype=torch.int8, device=q.device)
+    for s in range(0, n, 1 << 17):
+        xe[s:s + (1 << 17)] = spread(x[s:s + (1 << 17)])
+    pq, px = H.row_popcount(q), H.row_popcount(x)
+
+    def gemm():
+        return torch._int_mm(qe, xe.t())
+
+    def call():
+        return pq[:, None] + px[None, :] - 2 * gemm()
+
+    assert torch.equal(call(), h_ref), "library counts"
+    ms, smi = sampled_ms(call)
+    gemm_ms, gemm_smi = sampled_ms(gemm)
+    del qe, xe
+    torch.cuda.empty_cache()
+    rec = {"call": "pq[:, None] + px[None, :] - 2 * torch._int_mm(q01, "
+                   "x01.t())", "Q": Q, "N": n, "W": W, "ms": ms,
+           "smi": smi, "int_mm_ms": gemm_ms, "int_mm_smi": gemm_smi}
+    print(f"library yardstick {rec['call']}: {ms:.3f} ms, equal to the "
+          f"plain counts, nvidia-smi {json.dumps(smi)}; the bare "
+          f"torch._int_mm (and-counts only): {gemm_ms:.3f} ms, nvidia-smi "
+          f"{json.dumps(gemm_smi)} [{card}]", flush=True)
     return rec
 
 
-def oracle_chunks(n_queries: int) -> list[tuple[int, int]]:
+def flat_serving(xp, qp, card: str) -> dict:
+    """BinaryFlatIndex.search over the NQ queries, k=10, both metrics: the
+    fused top-k against the all-pairs design (``[chunk, N]`` matrices, then
+    the keyed top-k), same results; QPS as the median of windows that each
+    end in the host fetch ``search`` makes, and the peak device memory above
+    what was allocated before the call."""
+    out = {}
+    for metric in H.METRICS:
+        flat = BinaryFlatIndex(xp, metric=metric, device=xp.device)
+
+        def all_pairs():
+            # a comparison, not the path: its launches are not counted
+            counts = H.LAUNCHES, H.TOPK_LAUNCHES
+            d, i = flat._search_all_pairs(qp, H.row_popcount(qp), 10)
+            H.LAUNCHES, H.TOPK_LAUNCHES = counts
+            return d.cpu().numpy(), i.cpu().numpy()
+
+        runs = {}
+        for name, fn, reps in (("fused", lambda: flat.search(qp, k=10), 9),
+                               ("all_pairs", all_pairs, 3)):
+            res = fn()  # warm-up
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            extra = torch.cuda.max_memory_allocated() - base_mem
+            windows = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                windows.append(NQ / (time.perf_counter() - t0))
+            runs[name] = {"qps": float(np.median(windows)),
+                          "qps_windows": windows,
+                          "search_s": NQ / float(np.median(windows)),
+                          "peak_extra_MB": extra / 1e6, "result": res}
+        f, a = runs["fused"].pop("result"), runs["all_pairs"].pop("result")
+        assert np.array_equal(f[0], a[0]) and np.array_equal(f[1], a[1]), \
+            f"{metric}: fused and all-pairs results differ"
+        out[metric] = runs
+        print(f"BinaryFlatIndex {metric}, {NQ} queries, k=10: fused "
+              f"{runs['fused']['search_s'] * 1e3:.2f} ms a search "
+              f"({runs['fused']['qps']:.0f} QPS, peak extra "
+              f"{runs['fused']['peak_extra_MB']:.1f} MB); all-pairs design "
+              f"{runs['all_pairs']['search_s'] * 1e3:.2f} ms "
+              f"({runs['all_pairs']['peak_extra_MB']:.1f} MB); same ids and "
+              f"distances [{card}]", flush=True)
+    return out
+
+
+def all_pairs_chunks(n_queries: int) -> list[tuple[int, int]]:
     """(start, stop) of the first and the last query chunk that
-    BinaryFlatIndex.search_device hands the kernel over N rows: the last
-    one ends in a partly filled query tile."""
+    BinaryFlatIndex's all-pairs branch hands hamming_scan over N rows: the
+    last one ends in a partly filled query tile."""
     step = max(1, BO._SCAN_CHUNK_ELEMS // N)
     last = (n_queries - 1) // step * step
     return [(0, min(step, n_queries)), (last, n_queries)]
@@ -427,24 +652,48 @@ def binary_phase(card: str, dev: torch.device) -> dict:
     bits_dev = torch.from_numpy(bits).to(dev)
     xp = BO.pack_bits(bits_dev)                           # [N, 48] words
     qp = BO.pack_bits(torch.from_numpy(qbits).to(dev))    # [NQ, 48]
-    ham = [hamming_variant(qp[:KERNEL_Q], xp, card, "full tiles")]
-    ham.append(hamming_variant(BO.pack_bits(torch.from_numpy(
-        qbits[:KERNEL_Q, :1500]).to(dev)), BO.pack_bits(bits_dev[:, :1500]),
-        card, "ragged W"))
-    # the oracle's own chunks: hamming over NQ queries, jaccard over CHUNK
+    qk = qp[:KERNEL_Q]
+    rec, h_ref = hamming_variant(qk, xp, card, "full tiles", keep=True)
+    ham = [rec]
+    topk = topk_variants(qk, xp, h_ref, rec["plain_ms"], card)
+    lib = library_yardstick(qk, xp, h_ref, card)
+    del h_ref
+    # a ragged W = 47 (4-byte loads, 3 chunks a tile): both entries
+    q47 = BO.pack_bits(torch.from_numpy(qbits[:KERNEL_Q, :1500]).to(dev))
+    x47 = BO.pack_bits(bits_dev[:, :1500])
+    rec, h_ref = hamming_variant(q47, x47, card, "ragged W", keep=True)
+    ham.append(rec)
+    topk.extend(topk_variants(q47, x47, h_ref, rec["plain_ms"], card,
+                              ks=(10, 100), nqs=(KERNEL_Q,)))
+    del h_ref, q47, x47
+    # the all-pairs branch's own chunks, over NQ and over CHUNK queries
     chunks = {}
-    for metric, nq in (("hamming", NQ), ("jaccard", CHUNK)):
-        for se in oracle_chunks(nq):
-            chunks.setdefault(se, []).append(metric)
-    for (s, e), metrics in sorted(chunks.items()):
+    for nq in (NQ, CHUNK):
+        for se in all_pairs_chunks(nq):
+            chunks.setdefault(se, []).append(str(nq))
+    for (s, e), of in sorted(chunks.items()):
         ham.append(hamming_variant(
-            qp[s:e], xp, card, f"{'+'.join(metrics)} oracle chunk {s}:{e}"))
+            qp[s:e], xp, card, f"all-pairs chunk {s}:{e} of {'+'.join(of)}"))
     torch.cuda.empty_cache()
 
-    H.LAUNCHES = X.LAUNCHES = 0  # count only the binary path's launches
+    # count only the binary path's launches
+    H.LAUNCHES = H.TOPK_LAUNCHES = X.LAUNCHES = 0
     t0 = time.perf_counter()
     gt_d, gt = BinaryFlatIndex(xp, metric="hamming").search(qp, k=10)
     out["flat_oracle_s"] = time.perf_counter() - t0
+    out["flat_serving"] = flat_serving(xp, qp, card)
+    # k above the fused limit: the all-pairs branch, whose first columns
+    # are the fused top-k's
+    kmax = H.TOPK_MAX_K
+    flat = BinaryFlatIndex(xp, metric="jaccard")
+    d_big, i_big = flat.search(qp[:CHUNK], k=kmax + 1)
+    d_top, i_top = flat.search(qp[:CHUNK], k=kmax)
+    assert np.array_equal(d_big[:, :kmax], d_top) and np.array_equal(
+        i_big[:, :kmax], i_top), "k above the fused limit disagrees"
+    del flat
+    print(f"BinaryFlatIndex jaccard k={kmax + 1} (all-pairs branch) over "
+          f"{CHUNK} queries: its first {kmax} columns equal the fused "
+          f"k={kmax} [{card}]", flush=True)
     hidx = BinaryHnswIndex(BIN_DIM, "hamming", engine="block",
                            block_size=BLOCK, device=dev).build(bits_dev)
     st = hidx.inner.build_stats
@@ -506,8 +755,10 @@ def binary_phase(card: str, dev: torch.device) -> dict:
           f"{out['jaccard_id_recall']:.4f}, exact distances [{card}]",
           flush=True)
     assert out["jaccard_tie_recall"] >= 0.85
-    out["launches"] = {"hamming_scan": H.LAUNCHES, "expand_score": X.LAUNCHES}
-    assert H.LAUNCHES > 0 and X.LAUNCHES > 0, out["launches"]
+    out["launches"] = {"hamming_scan": H.LAUNCHES - H.TOPK_LAUNCHES,
+                       "hamming_topk": H.TOPK_LAUNCHES,
+                       "expand_score": X.LAUNCHES}
+    assert min(out["launches"].values()) > 0, out["launches"]
     out["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"binary path launches {json.dumps(out['launches'])}, peak device "
           f"memory {out['peak_mem_GB']:.2f} GB [{card}]", flush=True)
@@ -536,7 +787,8 @@ def binary_phase(card: str, dev: torch.device) -> dict:
              bids, metric), kw, "int8", metric, card,
             (inner.blocks_sq.max() + q_sq.max()).item(),
             shape=dict(Q=KERNEL_Q, p=chosen, S=BLOCK, d=BIN_DIM, B=B)))
-    return {"numbers": out, "hamming": ham, "expand_d1536": wide}
+    return {"numbers": out, "hamming": ham, "topk": topk, "library": lib,
+            "expand_d1536": wide}
 
 
 def main() -> None:
@@ -571,6 +823,13 @@ def main() -> None:
     print(json.dumps({"main_path": numbers, "lifecycle": life,
                       "binary": binary["numbers"], "nvcc_s": builds,
                       "card": card}), flush=True)
+    topk = binary["topk"]
+    fused = next(v for v in topk if v["metric"] == "hamming"
+                 and v["k"] == 10 and v["Q"] == KERNEL_Q
+                 and v["W"] == BIN_DIM // 32)
+    lib_ms = binary["library"]["ms"]
+    int_mm_ms = binary["library"]["int_mm_ms"]
+    launches_bin = binary["numbers"]["launches"]
     print(json.dumps({"kernels": [{
         "name": "expand_score", "route": "cuda",
         "source": "tpu_hnsw_torch/csrc/expand_score.cu",
@@ -578,20 +837,41 @@ def main() -> None:
         "launches": launches,
         "launches_by_path": {
             "block_1Mx128": launches, "block_lifecycle": life_launches,
-            "binary_1Mx1536": binary["numbers"]["launches"]["expand_score"]},
+            "binary_1Mx1536": launches_bin["expand_score"]},
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
         "timed_at": "int8 l2 Q=1024 p=8 S=256 d=128",
         "variants": variants,
     }, {
         "name": "hamming_scan", "route": "cuda",
         "source": "tpu_hnsw_torch/csrc/hamming_scan.cu",
         "replaces": "tpu_hnsw/ops/pallas_hamming.py:52",
-        "launches": binary["numbers"]["launches"]["hamming_scan"],
+        "launches": launches_bin["hamming_scan"],
+        "launches_by_path": {"binary_1Mx1536": launches_bin["hamming_scan"]},
         "max_abs_err": max(v["max_abs_err"] for v in ham),
         "ms": ham[0]["ms"], "plain_ms": ham[0]["plain_ms"],
+        "bound_ms": ham[0]["bound_ms"], "bound_by": ham[0]["bound_by"],
+        "library_ms": lib_ms, "library_int_mm_ms": int_mm_ms,
+        "library": binary["library"],
         "timed_at": "Q=1024 N=1000000 W=48 (1536 bits)",
         "variants": ham,
+    }, {
+        "name": "hamming_topk", "route": "cuda",
+        "source": "tpu_hnsw_torch/csrc/hamming_scan.cu",
+        "replaces": "tpu_hnsw/ops/pallas_hamming.py:52 with the top_k of "
+                    "tpu_hnsw/ops/bitops.py:90",
+        "launches": launches_bin["hamming_topk"],
+        "launches_by_path": {"binary_1Mx1536": launches_bin["hamming_topk"]},
+        "max_abs_err": max(v["max_abs_err"] for v in topk),
+        "ms": fused["ms"], "plain_ms": fused["plain_ms"],
+        "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
+        "library_ms": lib_ms, "library_int_mm_ms": int_mm_ms,
+        "library_of": "the and-counts and hamming step (no top-k); "
+                      "library_int_mm_ms: the and-counts alone",
+        "timed_at": "hamming k=10 Q=1024 N=1000000 W=48 (1536 bits)",
+        "variants": topk,
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -115,8 +115,10 @@ def test_search_sends_uint8_bits(data, metric, monkeypatch):
 
 def test_packed_input_matches_bits_input(data):
     base, queries, _ = data
-    a = BinaryHnswIndex(NBITS, engine="block", block_size=64, device="cpu").build(base)
-    b = BinaryHnswIndex(NBITS, engine="block", block_size=64, device="cpu").build(
+    a = BinaryHnswIndex(NBITS, engine="block", block_size=64,
+                        device="cpu").build(base)
+    b = BinaryHnswIndex(NBITS, engine="block", block_size=64,
+                        device="cpu").build(
         bitops.pack_bits(base), packed=True)
     da, ia = a.search(queries, k=5, probes=8)
     db, ib = b.search(bitops.pack_bits(queries), k=5, packed=True, probes=8)
@@ -200,3 +202,15 @@ def test_saved_by_jax_loads_in_port_and_back(data, jax_idx, tmp_path):
     bd, _ = back.search(queries, k=10, probes=8)
     np.testing.assert_array_equal(bd, d)
     assert port.inner.stats()["n"] == back.inner.n == len(base)
+
+
+def test_binary_index_defaults_to_the_card(monkeypatch):
+    """No device means CUDA; without a card construction raises."""
+    if torch.cuda.is_available():
+        assert BinaryHnswIndex(NBITS,
+                               engine="block").inner.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BinaryHnswIndex(NBITS, engine="block")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert BinaryHnswIndex(NBITS, engine="block").inner.device.type == "cuda"

@@ -41,7 +41,8 @@ def ref():
                   block_size=64).build(base)
     state = {k: np.asarray(getattr(jidx, k)) for k in STATE_KEYS}
     state.update(n=jidx.n, n_blocks=jidx.n_blocks)
-    gt = FlatIndex(base, Metric.L2, device="cpu").search(q, k=10, exact=True)[1]
+    gt = FlatIndex(base, Metric.L2,
+                   device="cpu").search(q, k=10, exact=True)[1]
     return base, q, jidx, state, gt
 
 
@@ -108,7 +109,8 @@ def test_score_copy_bytes_match_reference(ref):
 def test_own_build_all_probes_matches_exact_oracle():
     base, q = _data(n=4096)
     idx = BlockHnswIndex(CFG, block_size=64, device="cpu").build(base)
-    gt = FlatIndex(base, Metric.L2, device="cpu").search(q, k=10, exact=True)[1]
+    gt = FlatIndex(base, Metric.L2,
+                   device="cpu").search(q, k=10, exact=True)[1]
     _, ids = idx.search(q, k=10, probes=idx.n_blocks)
     assert recall_at_k(ids, gt, 10) == 1.0
 
@@ -137,9 +139,11 @@ def test_device_tensor_build_and_exhaustive_scan():
     exhaustive-scan threshold lowered, probes >= n_blocks takes _scan_all
     and stays exact."""
     base, q = _data(n=4096)
-    gt = FlatIndex(base, Metric.L2, device="cpu").search(q, k=10, exact=True)[1]
+    gt = FlatIndex(base, Metric.L2,
+                   device="cpu").search(q, k=10, exact=True)[1]
     a = BlockHnswIndex(CFG, block_size=64, device="cpu").build(base)
-    b = BlockHnswIndex(CFG, block_size=64, device="cpu").build(torch.from_numpy(base))
+    b = BlockHnswIndex(CFG, block_size=64,
+                       device="cpu").build(torch.from_numpy(base))
     assert torch.equal(a.block_ids, b.block_ids)
     assert b.build_stats["device_resident_input"]
     b.EXHAUSTIVE_SCAN_MIN_BLOCKS = 0
@@ -151,7 +155,8 @@ def test_cosine_metric():
     base, q = _data(n=4096)
     cfg = HnswConfig(dim=32, m=8, ef_construction=32, metric=Metric.COSINE)
     idx = BlockHnswIndex(cfg, block_size=64, device="cpu").build(base)
-    gt = FlatIndex(base, Metric.COSINE, device="cpu").search(q, k=10, exact=True)[1]
+    gt = FlatIndex(base, Metric.COSINE,
+                   device="cpu").search(q, k=10, exact=True)[1]
     _, ids = idx.search(q, k=10, probes=16)
     assert recall_at_k(ids, gt, 10) >= 0.9
     d, _ = idx.search(q[:4], k=5, probes=idx.n_blocks)  # 1 - cos in [0, 2]
@@ -162,7 +167,8 @@ def test_ip_metric():
     base, q = _data(n=4096)
     cfg = HnswConfig(dim=32, m=8, ef_construction=32, metric=Metric.IP)
     idx = BlockHnswIndex(cfg, block_size=64, device="cpu").build(base)
-    gt = FlatIndex(base, Metric.IP, device="cpu").search(q, k=10, exact=True)[1]
+    gt = FlatIndex(base, Metric.IP,
+                   device="cpu").search(q, k=10, exact=True)[1]
     _, ids = idx.search(q, k=10, probes=24)
     assert recall_at_k(ids, gt, 10) >= 0.9
 
@@ -187,3 +193,22 @@ def test_later_slices_raise_not_implemented(tmp_path):
     (tmp_path / "x" / "centroid_graph").mkdir()
     with pytest.raises(NotImplementedError, match="slice 2"):
         BlockHnswIndex.load(str(tmp_path / "x"), device="cpu")
+
+
+def test_block_index_defaults_to_the_card(tmp_path, monkeypatch):
+    """No device means CUDA, for the constructor and for the loaders;
+    without a card both raise at construction."""
+    assert BlockHnswIndex(CFG, device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert BlockHnswIndex(CFG).device.type == "cuda"
+        return
+    base, _ = _data(n=512)
+    BlockHnswIndex(CFG, block_size=64, device="cpu").build(base).save(
+        str(tmp_path / "x"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BlockHnswIndex(CFG)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BlockHnswIndex.load(str(tmp_path / "x"))
+    # the default itself, where a card is reported
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert BlockHnswIndex(CFG).device.type == "cuda"

@@ -31,14 +31,16 @@ def _data(n=2048, d=32, nq=64, seed=0):
 def _pair(base, block_size=64, **cfg):
     """The same index built by both packages (same data and seed)."""
     kw = dict(dim=base.shape[1], m=8, ef_construction=32, **cfg)
-    return (BlockHnswIndex(HnswConfig(**kw), block_size=block_size, device="cpu").build(base),
+    return (BlockHnswIndex(HnswConfig(**kw), block_size=block_size,
+                           device="cpu").build(base),
             JBlock(JCfg(**kw), block_size=block_size).build(base))
 
 
 def _gt(base, queries, k, rows=None):
     """Exact top-k ids over ``rows`` of ``base`` (all rows by default)."""
     rows = np.arange(len(base)) if rows is None else np.asarray(rows)
-    _, ids = FlatIndex(base[rows], Metric.L2, device="cpu").search(queries, k=k, exact=True)
+    _, ids = FlatIndex(base[rows], Metric.L2,
+                       device="cpu").search(queries, k=k, exact=True)
     return np.where(ids >= 0, rows[np.clip(ids, 0, None)], -1)
 
 
@@ -162,7 +164,8 @@ def fdata():
 def test_block_filtered_search(fdata):
     base, queries, mask = fdata
     kw = dict(dim=32, m=16, ef_construction=64, seed=0)
-    idx = BlockHnswIndex(HnswConfig(**kw), block_size=64, device="cpu").build(base)
+    idx = BlockHnswIndex(HnswConfig(**kw), block_size=64,
+                         device="cpu").build(base)
     jidx = JBlock(JCfg(**kw), block_size=64).build(base)
     gt = _gt(base, queries, 10, np.where(mask)[0])
     recs = []
@@ -192,7 +195,8 @@ def test_block_filtered_tail_and_exhaustive(fdata, two_stage):
     disallowed positions out."""
     base, queries, mask = fdata
     kw = dict(dim=32, m=16, ef_construction=64, seed=0)
-    idx = BlockHnswIndex(HnswConfig(**kw), block_size=64, device="cpu").build(base[:5000])
+    idx = BlockHnswIndex(HnswConfig(**kw), block_size=64,
+                         device="cpu").build(base[:5000])
     idx.two_stage = two_stage
     idx.add(base[5000:])
     gt = _gt(base, queries, 10, np.where(mask)[0])
@@ -212,7 +216,8 @@ def test_block_filtered_tail_and_exhaustive(fdata, two_stage):
 def test_tail_only_index_serves(fdata):
     """An index built empty serves its spill tail alone (n_blocks == 0)."""
     base, queries, mask = fdata
-    idx = BlockHnswIndex(HnswConfig(dim=32, m=8, ef_construction=32), device="cpu")
+    idx = BlockHnswIndex(HnswConfig(dim=32, m=8, ef_construction=32),
+                         device="cpu")
     idx.build(np.zeros((0, 32), np.float32))
     idx.add(base[:300])
     _, ids = idx.search(queries, k=5, filter_mask=mask)
@@ -268,7 +273,8 @@ def test_block_iterative_scan_covers_tail():
 
 def test_block_index_empty_state_is_safe():
     cfg = dict(dim=8, m=4, ef_construction=8)
-    for ix in (BlockHnswIndex(HnswConfig(**cfg), device="cpu"), JBlock(JCfg(**cfg))):
+    for ix in (BlockHnswIndex(HnswConfig(**cfg), device="cpu"),
+               JBlock(JCfg(**cfg))):
         assert ix.size == 0 and ix.stats()["n"] == 0
         ix.delete([3, 5])  # no-op
         with pytest.raises(ValueError, match="empty"):
@@ -302,13 +308,15 @@ def test_block_slack_persists(tmp_path):
     idx = BlockHnswIndex(HnswConfig(**cfg), block_size=64,
                          block_slack=1.5, device="cpu").build(base)
     idx.save(str(tmp_path / "p"))
-    assert BlockHnswIndex.load(str(tmp_path / "p"), device="cpu").block_slack == 1.5
+    assert BlockHnswIndex.load(str(tmp_path / "p"),
+                               device="cpu").block_slack == 1.5
     assert JBlock.load(str(tmp_path / "p")).block_slack == 1.05  # reference
     j = JBlock(JCfg(**cfg), block_size=64, block_slack=1.5).build(base)
     j.save(str(tmp_path / "j"))
     with open(tmp_path / "j" / "meta.json") as f:
         assert "block_slack" not in json.load(f)
-    assert BlockHnswIndex.load(str(tmp_path / "j"), device="cpu").block_slack == 1.05
+    assert BlockHnswIndex.load(str(tmp_path / "j"),
+                               device="cpu").block_slack == 1.05
 
 
 def test_filtered_iterative_scan_widens_the_tail():
@@ -413,7 +421,8 @@ def test_compact_exports_storage_dtype(monkeypatch):
     cfg = HnswConfig(dim=32, m=8, ef_construction=32, dtype="bfloat16")
 
     def mutated():
-        ix = BlockHnswIndex(cfg, block_size=64, device="cpu").build(base[:1800])
+        ix = BlockHnswIndex(cfg, block_size=64,
+                            device="cpu").build(base[:1800])
         ix.add(base[1800:])
         ix.delete(np.arange(0, 2048, 7))
         return ix

@@ -24,7 +24,8 @@ def test_exact_ids_match_reference_on_sift_fixture(metric):
     base = read_fvecs(os.path.join(FIX, "sift10k_base.fvecs"))
     q = read_fvecs(os.path.join(FIX, "sift10k_query.fvecs"))
     _, want = JFlat(base, JMetric(metric)).search(q, k=10, exact=True)
-    d, got = FlatIndex(base, Metric(metric), device="cpu").search(q, k=10, exact=True)
+    d, got = FlatIndex(base, Metric(metric),
+                       device="cpu").search(q, k=10, exact=True)
     np.testing.assert_array_equal(got, want)
     if metric == "l2":  # the fixture's own ground truth
         gt = read_ivecs(os.path.join(FIX, "sift10k_groundtruth.ivecs"))
@@ -66,3 +67,15 @@ def test_k_above_table_size_pads():
     assert ids.shape == (3, 30) and (ids[:, 20:] == -1).all()
     assert np.isinf(d[:, 20:]).all()
     assert sorted(ids[0, :20]) == list(range(20))
+
+
+def test_flat_index_defaults_to_the_card():
+    """With no device a numpy table goes to CUDA; without a card that
+    raises instead of running on the CPU (a CPU tensor as well)."""
+    base = np.zeros((8, 4), np.float32)
+    if torch.cuda.is_available():
+        assert FlatIndex(base).device.type == "cuda"
+        return
+    for table in (base, torch.from_numpy(base)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            FlatIndex(table)

@@ -24,9 +24,11 @@ _, ids = idx.search(q, k=5, probes=idx.n_blocks)
 gt = FlatIndex(base, Metric.L2, device="cpu").search(q, k=5, exact=True)[1]
 assert recall_at_k(ids, gt, 5) == 1.0
 bits = binary_quantize(base).numpy()
-bidx = BinaryHnswIndex(16, engine="block", block_size=64, device="cpu").build(bits)
+bidx = BinaryHnswIndex(16, engine="block", block_size=64,
+                       device="cpu").build(bits)
 d, ids = bidx.search(bits[:8], k=5, probes=bidx.inner.n_blocks)
-gd, _ = BinaryFlatIndex.from_bits(bits, device="cpu").search(pack_bits(bits[:8]), k=5)
+flat = BinaryFlatIndex.from_bits(bits, device="cpu")
+gd, _ = flat.search(pack_bits(bits[:8]), k=5)
 assert (d == gd).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tpu_hnsw"))

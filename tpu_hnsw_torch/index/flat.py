@@ -15,7 +15,7 @@ import torch
 from tpu_hnsw_torch.config import Metric
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import topk as T
-from tpu_hnsw_torch.utils.device import entry_device, require
+from tpu_hnsw_torch.utils.device import entry_device
 
 
 def _stream_search(q, xs, xs_sq, valid, k: int, metric: Metric, tile: int):
@@ -76,7 +76,7 @@ class FlatIndex:
                  device=None):
         if not isinstance(vectors, torch.Tensor):
             vectors = torch.from_numpy(np.asarray(vectors, np.float32))
-        vectors = vectors.to(device=require(entry_device(device)),
+        vectors = vectors.to(device=entry_device(device),
                              dtype=dtype or vectors.dtype)
         if metric.needs_normalized:
             vectors = D.l2_normalize(vectors)

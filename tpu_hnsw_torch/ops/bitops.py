@@ -16,7 +16,7 @@ import torch
 from tpu_hnsw_torch.ops import hamming as H
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.ops.hamming import popcount, words  # noqa: F401
-from tpu_hnsw_torch.utils.device import entry_device, require
+from tpu_hnsw_torch.utils.device import entry_device
 
 # [chunk, N] entries of the distance matrix per query chunk of the
 # all-pairs scan (k above the fused top-k's limit): 2^28 int32 is 1 GB
@@ -101,7 +101,7 @@ class BinaryFlatIndex:
         if metric not in ("hamming", "jaccard"):
             raise ValueError("metric must be hamming or jaccard")
         self.metric = metric
-        self.device = require(entry_device(device))
+        self.device = entry_device(device)
         self.packed = as_words(packed, self.device)
         # row popcounts: the kernel's |x| (hamming and jaccard)
         self.pop = H.row_popcount(self.packed)
@@ -114,26 +114,34 @@ class BinaryFlatIndex:
     def search_device(self, q_packed, k: int = 10):
         """(distances f32 ``[Q, k]``, ids int32 ``[Q, k]``) tensors,
         ascending by (distance, id). Up to ``hamming.TOPK_MAX_K`` the fused
-        top-k serves; above it, the all-pairs scan in query chunks that
-        keep ``[chunk, N]`` bounded."""
+        top-k serves; above it, the all-pairs scan."""
         q = as_words(q_packed, self.device)
         pq = H.row_popcount(q)
-        ds, ids = [], []
         if k <= H.TOPK_MAX_K:
-            for s in range(0, q.shape[0], _TOPK_CHUNK_Q):
-                e = s + _TOPK_CHUNK_Q
-                d, i = H.hamming_topk(q[s:e], self.packed, pq[s:e],
-                                      self.pop, k, self.metric)
-                ds.append(d)
-                ids.append(i)
-        else:
-            step = max(1, _SCAN_CHUNK_ELEMS // max(self.packed.shape[0], 1))
-            for s in range(0, q.shape[0], step):
-                h = H.hamming_scan(q[s:s + step], self.packed)
-                d, i = T.topk_smallest_by_index(
-                    H.distances(h, pq[s:s + step], self.pop, self.metric), k)
-                ds.append(d)
-                ids.append(i)
+            return self._search_fused(q, pq, k)
+        return self._search_all_pairs(q, pq, k)
+
+    def _search_fused(self, q, pq, k: int):
+        ds, ids = [], []
+        for s in range(0, q.shape[0], _TOPK_CHUNK_Q):
+            e = s + _TOPK_CHUNK_Q
+            d, i = H.hamming_topk(q[s:e], self.packed, pq[s:e], self.pop, k,
+                                  self.metric)
+            ds.append(d)
+            ids.append(i)
+        return torch.cat(ds), torch.cat(ids)
+
+    def _search_all_pairs(self, q, pq, k: int):
+        """``[chunk, N]`` distance matrices, queries chunked to keep each
+        within ``_SCAN_CHUNK_ELEMS``, then the keyed top-k."""
+        step = max(1, _SCAN_CHUNK_ELEMS // max(self.packed.shape[0], 1))
+        ds, ids = [], []
+        for s in range(0, q.shape[0], step):
+            h = H.hamming_scan(q[s:s + step], self.packed)
+            d, i = T.topk_smallest_by_index(
+                H.distances(h, pq[s:s + step], self.pop, self.metric), k)
+            ds.append(d)
+            ids.append(i)
         return torch.cat(ds), torch.cat(ids)
 
     def search(self, q_packed, k: int = 10):

@@ -34,16 +34,12 @@ TOPK_LAUNCHES = 0
 NAME = "hamming_scan"
 #: the largest k the fused top-k takes (a warp merges lists of <= 128)
 TOPK_MAX_K = 128
-#: tensor-core route of the kernel: "b1" (m16n8k256 .and.popc on the
-#: packed words) or "int8" (words spread to 0/1 bytes, m16n8k32)
-ROUTE = "b1"
-_ROUTES = {"int8": 0, "b1": 1}
 METRICS = ("hamming", "jaccard")
 
 _P = ctypes.c_void_p
 _I, _LL = ctypes.c_int, ctypes.c_longlong
-_SCAN_ARGS = [_I, _P, _P, _P, _P, _P, _I, _LL, _I, _LL, _I, _P]
-_TOPK_ARGS = [_I, _P, _P, _P, _P, _P, _I, _LL, _I, _LL, _I, _I, _I, _P]
+_SCAN_ARGS = [_P, _P, _P, _I, _LL, _I, _LL, _I, _P]
+_TOPK_ARGS = [_P, _P, _P, _P, _P, _I, _LL, _I, _LL, _I, _I, _I, _P]
 _BQ, _BN = 64, 128  # the kernel's CTA tile: queries x rows
 _WAVES = 4          # CTAs per SM the row ranges aim at
 # int64 elements of the [Q, chunk, W] XOR temporary per step of the plain
@@ -134,17 +130,19 @@ def _operands(q, x, entry: str):
     Q = q.shape[0] if q.ndim == 2 else -1
     _check("x", x, (N, W), torch.int32, x.device)
     _check("q", q, (Q, W), torch.int32, x.device)
-    if -(-Q // _BQ) > 65535:
-        raise ValueError(f"{entry}: at most {65535 * _BQ} queries")
+    if -(-Q // _BQ) > 65535 or N >= 1 << 31:
+        raise ValueError(f"{entry}: at most {65535 * _BQ} queries and "
+                         f"2^31 - 1 rows (int32 ids)")
     return q, x, Q, N, W
 
 
-def splits(Q: int, N: int, device) -> tuple[int, int]:
+def _splits(Q: int, N: int, device) -> tuple[int, int]:
     """(rows per range, ranges): contiguous ranges of whole 128-row tiles,
-    about ``_WAVES`` CTAs per SM over all 64-query tiles."""
+    at most ``_WAVES`` CTAs per SM over all 64-query tiles (rounding down
+    keeps the last wave of CTAs full)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = -(-N // _BN)
-    want = -(-(_WAVES * sms) // -(-Q // _BQ))
+    want = _WAVES * sms // -(-Q // _BQ)
     per = -(-tiles // max(1, min(want, tiles))) * _BN
     return per, -(-N // per)
 
@@ -154,7 +152,7 @@ def _launch(fn, dev, *args):
                                     "hamming_topk_launch": _TOPK_ARGS})
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn)(_ROUTES[ROUTE], *args, stream)
+        err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} failed: cudaError {err}")
 
@@ -163,8 +161,7 @@ def hamming_scan(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Hamming distances of every query against every row: ``[Q, N]`` int32.
 
     q ``[Q, W]`` and x ``[N, W]`` packed 32-bit words (int32 or uint32),
-    on one device; any W >= 1, ragged Q and N. On the card the row
-    popcounts the kernel needs are computed here first.
+    on one device; any W >= 1, ragged Q and N.
     """
     global LAUNCHES
     if x.device.type == "cpu":
@@ -173,11 +170,9 @@ def hamming_scan(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((Q, N), dtype=torch.int32, device=x.device)
     if Q == 0 or N == 0:
         return out
-    pop_q, pop_x = row_popcount(q), row_popcount(x)
-    per, ns = splits(Q, N, x.device)
+    per, ns = _splits(Q, N, x.device)
     _launch("hamming_scan_launch", x.device, q.data_ptr(), x.data_ptr(),
-            pop_q.data_ptr(), pop_x.data_ptr(), out.data_ptr(), Q, N, W, per,
-            ns)
+            out.data_ptr(), Q, N, W, per, ns)
     LAUNCHES += 1
     return out
 
@@ -208,7 +203,7 @@ def hamming_topk(q: torch.Tensor, x: torch.Tensor, pop_q: torch.Tensor,
     if Q == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=x.device),
                 torch.empty((0, k), dtype=torch.int32, device=x.device))
-    per, ns = splits(Q, N, x.device)
+    per, ns = _splits(Q, N, x.device)
     cand = torch.empty((Q, ns * k), dtype=torch.int64, device=x.device)
     _launch("hamming_topk_launch", x.device, q.data_ptr(), x.data_ptr(),
             pop_q.data_ptr(), pop_x.data_ptr(), cand.data_ptr(), Q, N, W,

@@ -20,17 +20,9 @@ def topk_smallest_fast(
     return topk_smallest(scores, k)
 
 
-def index_keys(d: torch.Tensor) -> torch.Tensor:
-    """One int64 key per entry of non-negative f32 ``d [..., n]``: the
-    float's bit pattern (monotone for d >= 0) above the index along the
-    last axis. Keys are unique, and their order is (distance, index)."""
-    n = d.shape[-1]
-    idx = torch.arange(n, dtype=torch.int64, device=d.device)
-    return (d.contiguous().view(torch.int32).to(torch.int64) << 32) | idx
-
-
 def decode_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`index_keys` back to (f32 distances, int32 indices)."""
+    """Keys ``(f32 distance bits << 32) | index`` back to (f32 distances,
+    int32 indices)."""
     d = (keys >> 32).to(torch.int32).view(torch.float32)
     return d, (keys & 0xFFFFFFFF).to(torch.int32)
 
@@ -40,5 +32,9 @@ def topk_smallest_by_index(d: torch.Tensor, k: int
     """Smallest-k of non-negative f32 ``d`` along the last axis, ascending
     by (value, index): ``lax.top_k(-d, k)``'s order, ties to the lower
     index. Returns (values f32, indices int32)."""
-    kk = torch.topk(index_keys(d), k, dim=-1, largest=False, sorted=True)
+    # one int64 key per entry: the float's bits (monotone for d >= 0) above
+    # the index, so keys are unique and ordered by (distance, index)
+    idx = torch.arange(d.shape[-1], dtype=torch.int64, device=d.device)
+    keys = (d.contiguous().view(torch.int32).to(torch.int64) << 32) | idx
+    kk = torch.topk(keys, k, dim=-1, largest=False, sorted=True)
     return decode_keys(kk.values)

@@ -7,14 +7,10 @@ import torch
 
 
 def entry_device(device=None) -> torch.device:
-    """``device`` as given, else ``cuda``."""
-    return torch.device("cuda" if device is None else device)
-
-
-def require(device: torch.device) -> torch.device:
-    """``device``, after checking that a CUDA one exists; raises
-    otherwise."""
-    if device.type == "cuda" and not torch.cuda.is_available():
+    """``device`` as given, else ``cuda``; raises for a CUDA device on a
+    host without one."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on "
                            "the CPU")
-    return device
+    return dev
