@@ -8,15 +8,22 @@ plain version):
 1. require CUDA, then print the card (``nvidia-smi`` name and power limit);
 2. build both kernel libraries (``expand_score``, ``hamming_scan``) from
    ``tpu_hnsw_torch/csrc`` with two ``nvcc`` processes started together;
-3. hold ``expand_score`` against its plain PyTorch version at main-path
-   shapes (Q=1024, p in {8, 32}, S=256, d=128, B=4102) in f32, bf16 and
-   int8, L2 and IP, plus the filter mask (int8, p=8), timing both with
-   CUDA events;
+3. hold both entries of ``csrc/expand_score.cu`` against their plain
+   PyTorch versions at main-path shapes (Q=1024, S=256, d=128, B=4102,
+   uniform random bids): ``expand_score`` at p in {8, 32} in f32, bf16 and
+   int8, L2 and IP, plus the filter mask (int8, p=8); ``expand_topr``
+   (int8: keys exactly equal, L2 and IP, masked and not, r in {1, 40, 100,
+   128}, Q=1024 and a ragged 76; f32 and bf16 at r=40 within RTOL); time
+   both entries and the earlier design's composite (all scores, then
+   ``torch.topk``) with CUDA events;
 4. the block path at full size: ``BlockHnswIndex`` over
    ``synthetic_clustered(1_000_000, 128, n_queries=4096, seed=42)``, built
    from host input and from a CUDA tensor, graded against the port's
    ``FlatIndex.search(exact=True)`` over bench.py's probe grid until
-   recall@10 >= 0.95, then QPS over 1024-query chunks;
+   recall@10 >= 0.95, then QPS over 1024-query chunks; stage 1 timed at
+   the routed bids of the first 1024 queries; a ``torch.profiler``
+   breakdown of one 1024-query ``search_device`` chunk (top device ops,
+   device-busy time over the unprofiled host wall time);
 5. filter and lifecycle on that index: the 10%-selectivity filter of
    bench.py, add, delete, filtered ``search_iterative``, ``compact`` and a
    ``save``/``load`` round trip;
@@ -37,17 +44,23 @@ plain version):
    fused limit;
    ``BinaryHnswIndex`` hamming (probe grid to tie-aware recall@10 >= 0.95,
    exact distances, QPS) and jaccard (rerank_k=100, exact distances);
-   ``expand_score`` at d=1536 on each index's int8 copy (hamming L2 with a
-   mask, jaccard cosine);
+   ``expand_score`` and ``expand_topr`` at d=1536 on each index's int8
+   copy (hamming L2, jaccard cosine; masked and not), and stage 1 timed at
+   the bids each index's own routing gives the first 1024 queries; a
+   ``torch.profiler`` breakdown of one 1024-query hamming search;
 7. print the kernel table as one JSON line (launches per path, times,
    bounds), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Each path's kernel launch counters are set to 0 just before it and read
 just after it; launches made to compare a kernel with its plain version
-are not counted. ``bound_ms`` is the larger of the bytes a call must move
-(each input read once, each output written once) over 3.35 TB/s and its
-operations over the data sheet's peak for their type (int8: 1,979 TOP/s;
-bf16: 989 TFLOP/s; f32 outside the tensor cores: 67 TFLOP/s).
+are not counted. Stage 1 of the block, lifecycle and binary paths must
+launch ``expand_topr``; the lifecycle's filtered ``search_iterative``
+widens past the fused limit and must launch ``expand_score`` too. A
+kernel's ``launches`` in the JSON line sums its paths'. ``bound_ms`` is
+the larger of the bytes a call must move (each input read once, each
+output written once) over 3.35 TB/s and its operations over the data
+sheet's peak for their type (int8: 1,979 TOP/s; bf16: 989 TFLOP/s; f32
+outside the tensor cores: 67 TFLOP/s).
 """
 
 from __future__ import annotations
@@ -64,7 +77,8 @@ import torch
 
 from tpu_hnsw_torch import (BinaryFlatIndex, BinaryHnswIndex, BlockHnswIndex,
                             FlatIndex, HnswConfig, Metric)
-from tpu_hnsw_torch.index.block import _make_score_copy, _quantize_rows
+from tpu_hnsw_torch.index.block import (_make_score_copy, _pad_cols,
+                                        _quantize_rows, _route_exact)
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
 from tpu_hnsw_torch.ops import _nvcc
 from tpu_hnsw_torch.ops import bitops as BO
@@ -181,6 +195,7 @@ def kernel_phase(base: np.ndarray, queries: np.ndarray, card: str,
     rng = np.random.default_rng(0)
     results = []
     cscale = (blocks_sq.max() + q_sq.max()).item()
+    topr, timing = [], None
     for dtype, (bl, scale) in copies.items():
         kw = {} if scale is None else dict(q8=q8, q_scale=q_scl,
                                             score_scale=scale)
@@ -192,6 +207,19 @@ def kernel_phase(base: np.ndarray, queries: np.ndarray, card: str,
                 results.append(expand_variant(
                     args, kw, dtype, metric, card, cscale,
                     shape=dict(Q=KERNEL_Q, p=p, S=BLOCK, d=DIM, B=B)))
+                if p != 8:
+                    continue
+                if dtype == "int8":
+                    topr.extend(topr_variants(args, kw, dtype, card, cscale,
+                                              "random bids"))
+                else:
+                    topr.extend(topr_variants(args, kw, dtype, card, cscale,
+                                              "random bids", rs=(40,),
+                                              nqs=(KERNEL_Q,)))
+                if dtype == "int8" and metric is Metric.L2:
+                    timing = stage1_timing(args, kw, 40, card,
+                                           "1M x 128 storage order, random "
+                                           "bids")
     # the filter mask (10% of rows allowed) on the main path's int8 copy
     bl, scale = copies["int8"]
     bids = torch.from_numpy(rng.integers(0, B, size=(KERNEL_Q, 8))).to(dev)
@@ -201,9 +229,13 @@ def kernel_phase(base: np.ndarray, queries: np.ndarray, card: str,
         (bl, blocks_sq, block_ids, q, q_sq, bids, Metric.L2), kw, "int8",
         Metric.L2, card, cscale,
         shape=dict(Q=KERNEL_Q, p=8, S=BLOCK, d=DIM, B=B)))
+    for metric in (Metric.L2, Metric.IP):
+        topr.extend(topr_variants(
+            (bl, blocks_sq, block_ids, q, q_sq, bids, metric), kw, "int8",
+            card, cscale, "random bids"))
     del rows, blocks, copies
     torch.cuda.empty_cache()
-    return results
+    return results, topr, timing
 
 
 def expand_variant(args, kw, dtype, metric, card, cscale, shape) -> dict:
@@ -233,15 +265,8 @@ def expand_variant(args, kw, dtype, metric, card, cscale, shape) -> dict:
     Q, p = bids.shape
     S, dp, es = bl.shape[1], bl.shape[2], bl.element_size()
     rec["kernel_GBps"] = Q * p * S * dp * es / rec["ms"] / 1e6
-    # bound: each distinct probed block's rows, norms, ids (scale, mask)
-    # read once, the queries and bids once, the scores written once
-    per_block = S * dp * es + 8 * S + 4 * ("score_scale" in kw) \
-        + S * ("allowed" in kw)
-    nbytes = (torch.unique(bids).numel() * per_block
-              + Q * dp * es + 4 * Q * (1 + ("q_scale" in kw))
-              + 8 * Q * p + 4 * Q * p * S)
-    rec["bound_ms"], rec["bound_by"] = bound(
-        nbytes, 2 * Q * p * S * shape["d"], dtype)
+    rec["bound_ms"], rec["bound_by"] = expand_bound(bl, bids, kw,
+                                                    4 * Q * p * S)
     print(f"kernel {dtype} {metric.value} p={shape['p']} d={shape['d']}"
           f"{' masked' if rec['masked'] else ''}: {rec['ms']:.4f} ms "
           f"(plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
@@ -250,6 +275,214 @@ def expand_variant(args, kw, dtype, metric, card, cscale, shape) -> dict:
           f"rel {rel:.3g} [{card}]", flush=True)
     assert rel <= RTOL[dtype], rec
     return rec
+
+
+def expand_bound(bl, bids, kw, out_bytes: int) -> tuple[float, str]:
+    """Either entry: each distinct probed block's rows, norms and ids (and
+    scale, mask) read once, the queries and bids once, the output written
+    once; 2 Q p S d operations of the rows' type."""
+    Q, p = bids.shape
+    S, dp, es = bl.shape[1], bl.shape[2], bl.element_size()
+    per_block = S * dp * es + 8 * S + 4 * ("score_scale" in kw) \
+        + S * ("allowed" in kw)
+    nbytes = (torch.unique(bids[(bids >= 0) & (bids < bl.shape[0])]).numel()
+              * per_block + Q * dp * es + 4 * Q * (1 + ("q_scale" in kw))
+              + 8 * Q * p + out_bytes)
+    dtype = {torch.int8: "int8", torch.bfloat16: "bfloat16"}.get(
+        bl.dtype, "float32")
+    return bound(nbytes, 2 * Q * p * S * dp, dtype)
+
+
+def topr_check(args, kw, dtype: str, r: int, plain, cscale: float) -> dict:
+    """expand_topr against expand_topr_reference (the keyed top-r of the
+    plain scores ``plain``) on the same card tensors: int8 keys exactly
+    equal; f32 and bf16 within RTOL of the cancellation scale at the
+    returned positions and at the r-th score, and every plain position
+    below the r-th score minus that bound returned."""
+    d, pos = X.expand_topr(*args, r, **kw)
+    wd, wpos = X.topr_of_scores(plain, r)
+    torch.cuda.synchronize()
+    Q = plain.shape[0]
+    flat = plain.reshape(Q, -1)
+    at = flat.gather(1, pos)
+    fin = torch.isfinite(at)
+    assert torch.equal(fin, torch.isfinite(d)), "inf pattern"
+    err = (d - at).abs()[fin]
+    rec = {"r": r, "Q": Q,
+           "max_abs_err": err.max().item() if err.numel() else 0.0}
+    if dtype == "int8":
+        rec["exact_keys"] = torch.equal(T.score_keys(d, pos),
+                                        T.score_keys(wd, wpos))
+        assert rec["exact_keys"], rec
+        return rec
+    rtol = RTOL[dtype]
+    assert (err <= rtol * (cscale + at.abs()[fin])).all(), rec
+    tol = rtol * (cscale + wd[:, -1].abs())
+    kth = torch.isfinite(wd[:, -1])
+    assert ((d[:, -1] - wd[:, -1]).abs()[kth] <= tol[kth]).all(), rec
+    must = flat < (wd[:, -1] - tol)[:, None]
+    got = torch.zeros_like(must).scatter_(1, pos, True)
+    assert (got | ~must).all(), rec
+    rec["within_rtol"] = rtol
+    return rec
+
+
+def topr_variants(args, kw, dtype, card, cscale, what: str,
+                  rs=(1, 40, 100, 128), nqs=(KERNEL_Q, RAGGED_Q)) -> list:
+    """topr_check at each r and query count (the first nq queries)."""
+    recs = []
+    bl, blocks_sq, block_ids, q, q_sq, bids, metric = args
+    for nq in nqs:
+        a = (bl, blocks_sq, block_ids, q[:nq], q_sq[:nq], bids[:nq], metric)
+        k = {n: (v[:nq] if n in ("q8", "q_scale") else v)
+             for n, v in kw.items()}
+        plain = X.expand_score_reference(*a, **k)
+        for r in rs:
+            rec = topr_check(a, k, dtype, r, plain, cscale)
+            rec.update(dtype=dtype, metric=metric.value, of=what,
+                       masked="allowed" in kw, d=q.shape[1])
+            recs.append(rec)
+        del plain
+    held = "keys exactly equal" if dtype == "int8" else "within RTOL"
+    print(f"expand_topr {dtype} {args[-1].value} {what}"
+          f"{' masked' if 'allowed' in kw else ''}: r {list(rs)} x Q "
+          f"{list(nqs)} {held} to the plain version [{card}]", flush=True)
+    return recs
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds of one call: the median over ``reps`` calls of
+    the span between CUDA events recorded around the call, each behind a
+    spin kernel of about 0.5 ms, so the call's launches are all queued
+    before the first event runs and host gaps do not count."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    return float(np.median(spans))
+
+
+def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
+    """Both entries and the earlier design's composite (all scores, then
+    torch.topk over [Q, p*S]) on one set of bids, in one call: ms from
+    CUDA events over back-to-back calls (cuda_ms, as every kernel's ms),
+    the device span of one call beside them (device_ms, which leaves out
+    the host's gaps), bounds, the plain version's ms, distinct blocks and
+    reuse."""
+    bl, bids = args[0], args[5]
+    Q, p = bids.shape
+    S = bl.shape[1]
+    distinct = torch.unique(bids).numel()
+
+    def composite():
+        return torch.topk(X.expand_score(*args, **kw).reshape(Q, -1), r,
+                          dim=1, largest=False)
+
+    def fused():
+        return X.expand_topr(*args, r, **kw)
+
+    def every():
+        return X.expand_score(*args, **kw)
+
+    rec = {"of": what, "Q": Q, "p": p, "S": S, "d": bl.shape[2], "r": r,
+           "distinct_blocks": distinct, "reuse": Q * p / distinct,
+           "all_ms": cuda_ms(every, 20), "fused_ms": cuda_ms(fused, 20),
+           "composite_ms": cuda_ms(composite, 20),
+           "all_device_ms": device_ms(every),
+           "fused_device_ms": device_ms(fused),
+           "composite_device_ms": device_ms(composite),
+           "plain_all_ms": cuda_ms(
+               lambda: X.expand_score_reference(*args, **kw), 3, 1),
+           "plain_fused_ms": cuda_ms(
+               lambda: X.expand_topr_reference(*args, r, **kw), 3, 1)}
+    rec["all_bound_ms"], rec["all_bound_by"] = expand_bound(
+        bl, bids, kw, 4 * Q * p * S)
+    rec["fused_bound_ms"], rec["fused_bound_by"] = expand_bound(
+        bl, bids, kw, 8 * Q * r)
+    print(f"stage 1 {what}: Q={Q} p={p} d={rec['d']} r={r}, {distinct} "
+          f"distinct blocks (reuse {rec['reuse']:.2f}); CUDA-event ms: all "
+          f"scores {rec['all_ms']:.4f} (bound {rec['all_bound_ms']:.4f}), "
+          f"fused top-r {rec['fused_ms']:.4f} (bound "
+          f"{rec['fused_bound_ms']:.4f}), composite {rec['composite_ms']:.4f};"
+          f" device span ms {rec['all_device_ms']:.4f} / "
+          f"{rec['fused_device_ms']:.4f} / {rec['composite_device_ms']:.4f}; "
+          f"plain {rec['plain_all_ms']:.2f} / {rec['plain_fused_ms']:.2f} ms"
+          f" [{card}]", flush=True)
+    return rec
+
+
+def device_breakdown(fn, card: str, what: str, top: int = 8) -> dict:
+    """torch.profiler over one call of ``fn``: the top CUDA ops by device
+    time, the count of device ops, and device-busy time over the host
+    wall time of a call (the median of five unprofiled calls after two
+    warm-ups, each ending in a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(7):  # the host wall time without the profiler's cost
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls[2:]))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = []
+    for ev in prof.key_averages():
+        if ev.device_type.name != "CUDA":
+            continue
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        ops.append((us, ev.count, ev.key))
+    ops.sort(reverse=True)
+    busy = sum(o[0] for o in ops) / 1e3
+    rec = {"of": what, "host_wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "busy_share": busy / (wall * 1e3),
+           "kernels": sum(o[1] for o in ops),
+           "top": [{"op": k[:80], "ms": us / 1e3, "count": c}
+                   for us, c, k in ops[:top]]}
+    print(f"device breakdown, {what}: host wall {rec['host_wall_ms']:.3f} "
+          f"ms, device busy {busy:.3f} ms ({rec['busy_share']:.1%}), "
+          f"{rec['kernels']} device ops; top {json.dumps(rec['top'])} "
+          f"[{card}]", flush=True)
+    return rec
+
+
+def expand_launches() -> dict:
+    """Launches of each expand entry since the counters were reset."""
+    return {"expand_score": X.LAUNCHES - X.TOPR_LAUNCHES,
+            "expand_topr": X.TOPR_LAUNCHES}
+
+
+def routed_timing(idx, q, probes: int, r: int, card: str, what: str):
+    """stage1_timing on the bids the index's own routing gives these
+    queries at ``probes``, on its scoring copy (as _serve_exact calls
+    stage 1)."""
+    q = idx._queries(q)
+    q_sq = (q * q).sum(1)
+    metric = idx.cfg.metric
+    bids = _route_exact(idx.centroids, idx.centroids_sq, q, q_sq, p=probes,
+                        metric=metric)
+    qp = _pad_cols(q, idx.blocks_score.shape[2])
+    kw = {}
+    if idx.score_scale is not None:
+        q8, q_scl = _quantize_rows(qp)
+        kw = dict(q8=q8, q_scale=q_scl, score_scale=idx.score_scale)
+    return stage1_timing((idx.blocks_score, idx.blocks_sq, idx.block_ids,
+                          qp, q_sq, bids, metric), kw, r, card, what)
 
 
 def main_path(base: np.ndarray, queries: np.ndarray, card: str,
@@ -507,7 +740,7 @@ def topk_variants(q, x, h_ref, scan_plain_ms: float, card: str,
                 got = H.hamming_topk(q[:nq], x, pq[:nq], px, k, metric)
                 torch.cuda.synchronize()
                 equal = (torch.equal(got[0], want[0])
-                         and torch.equal(got[1], want[1]))
+                         and torch.equal(got[1], want[1].to(torch.int32)))
                 call = (lambda: H.hamming_topk(q[:nq], x, pq[:nq], px, k,
                                                metric))
                 ms, smi = sampled_ms(call) if nq == Q else (
@@ -677,7 +910,7 @@ def binary_phase(card: str, dev: torch.device) -> dict:
     torch.cuda.empty_cache()
 
     # count only the binary path's launches
-    H.LAUNCHES = H.TOPK_LAUNCHES = X.LAUNCHES = 0
+    H.LAUNCHES = H.TOPK_LAUNCHES = X.LAUNCHES = X.TOPR_LAUNCHES = 0
     t0 = time.perf_counter()
     gt_d, gt = BinaryFlatIndex(xp, metric="hamming").search(qp, k=10)
     out["flat_oracle_s"] = time.perf_counter() - t0
@@ -756,9 +989,10 @@ def binary_phase(card: str, dev: torch.device) -> dict:
           flush=True)
     assert out["jaccard_tie_recall"] >= 0.85
     out["launches"] = {"hamming_scan": H.LAUNCHES - H.TOPK_LAUNCHES,
-                       "hamming_topk": H.TOPK_LAUNCHES,
-                       "expand_score": X.LAUNCHES}
-    assert min(out["launches"].values()) > 0, out["launches"]
+                       "hamming_topk": H.TOPK_LAUNCHES, **expand_launches()}
+    # both indexes keep r <= 128 rows a query: stage 1 is the fused entry
+    assert min(v for k, v in out["launches"].items()
+               if k != "expand_score") > 0, out["launches"]
     out["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"binary path launches {json.dumps(out['launches'])}, peak device "
           f"memory {out['peak_mem_GB']:.2f} GB [{card}]", flush=True)
@@ -787,8 +1021,39 @@ def binary_phase(card: str, dev: torch.device) -> dict:
              bids, metric), kw, "int8", metric, card,
             (inner.blocks_sq.max() + q_sq.max()).item(),
             shape=dict(Q=KERNEL_Q, p=chosen, S=BLOCK, d=BIN_DIM, B=B)))
+    # expand_topr at d = 1536 on both copies, masked and not (the hamming
+    # index's L2, the jaccard index's cosine: the IP epilogue), keys
+    # exactly equal; then stage 1 at the routed bids each index serves
+    topr = []
+    for ix in (hidx, jidx):
+        inner = ix.inner
+        q = inner._queries(qb)
+        q8, q_scl = _quantize_rows(q)
+        q_sq = (q * q).sum(1)
+        B = inner.n_blocks
+        bids = torch.from_numpy(
+            rng.integers(0, B, size=(KERNEL_Q, chosen))).to(dev)
+        args = (inner.blocks_score, inner.blocks_sq, inner.block_ids, q,
+                q_sq, bids, inner.cfg.metric)
+        cscale = (inner.blocks_sq.max() + q_sq.max()).item()
+        for allow in (False, True):
+            kw = dict(q8=q8, q_scale=q_scl, score_scale=inner.score_scale)
+            if allow:
+                kw["allowed"] = torch.from_numpy(
+                    rng.random((B, BLOCK)) < FILTER_SHARE).to(dev)
+            topr.extend(topr_variants(args, kw, "int8", card, cscale,
+                                      f"{ix.metric} index, random bids"))
+    timings = [routed_timing(ix.inner, qb, chosen, r, card,
+                             f"{ix.metric} index (d=1536), routed bids")
+               for ix, r in ((hidx, 40), (jidx, 100))]
+    chunk_bits = qbits[:CHUNK]
+    breakdown = device_breakdown(
+        lambda: hidx.search(chunk_bits, k=10, probes=chosen), card,
+        f"binary hamming path, one {CHUNK}-query BinaryHnswIndex.search "
+        "chunk")
     return {"numbers": out, "hamming": ham, "topk": topk, "library": lib,
-            "expand_d1536": wide}
+            "expand_d1536": wide, "topr_d1536": topr, "timings": timings,
+            "breakdown": breakdown}
 
 
 def main() -> None:
@@ -801,21 +1066,36 @@ def main() -> None:
     base, queries = synthetic_clustered(N, DIM, n_queries=NQ, seed=DATA_SEED)
     print(f"data {base.shape} in {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
-    variants = kernel_phase(base, queries, card, dev)
+    variants, topr, random_timing = kernel_phase(base, queries, card, dev)
 
-    X.LAUNCHES = H.LAUNCHES = 0  # count only the block path's launches
+    # count only the block path's launches
+    X.LAUNCHES = X.TOPR_LAUNCHES = H.LAUNCHES = 0
     numbers, idx = main_path(base, queries, card, dev)
-    launches = X.LAUNCHES
-    assert launches > 0, "the block path never launched expand_score"
-    X.LAUNCHES = 0
+    launches = expand_launches()
+    assert launches["expand_topr"] > 0, \
+        "the block path never launched expand_topr"
+    timings = [random_timing, routed_timing(
+        idx, torch.from_numpy(queries[:KERNEL_Q]).to(dev), numbers["probes"],
+        40, card, "1M x 128 index, routed bids")]
+    qchunk = torch.from_numpy(queries[:CHUNK]).to(dev)
+    breakdowns = [device_breakdown(
+        lambda: idx.search_device(qchunk, k=10, probes=numbers["probes"]),
+        card, f"block path, one {CHUNK}-query search_device chunk")]
+    X.LAUNCHES = X.TOPR_LAUNCHES = 0
     life = lifecycle_phase(idx, base, queries, numbers["probes"], card, dev)
-    life_launches = X.LAUNCHES
-    assert life_launches > 0, "filter/lifecycle never launched expand_score"
-    del idx, base, queries
+    life_launches = expand_launches()
+    assert life_launches["expand_topr"] > 0, \
+        "filter/lifecycle never launched expand_topr"
+    assert life_launches["expand_score"] > 0, \
+        "search_iterative never widened past the fused limit"
+    del idx, base, queries, qchunk
     torch.cuda.empty_cache()
 
     binary = binary_phase(card, dev)
     variants.extend(binary["expand_d1536"])
+    topr.extend(binary["topr_d1536"])
+    timings.extend(binary["timings"])
+    breakdowns.append(binary["breakdown"])
     ham = binary["hamming"]
     head = next(v for v in variants if v["dtype"] == "int8"
                 and v["metric"] == "l2" and v["p"] == 8 and v["d"] == DIM
@@ -830,20 +1110,52 @@ def main() -> None:
     lib_ms = binary["library"]["ms"]
     int_mm_ms = binary["library"]["int_mm_ms"]
     launches_bin = binary["numbers"]["launches"]
+    by_path = {name: {"block_1Mx128": launches[name],
+                      "block_lifecycle": life_launches[name],
+                      "binary_1Mx1536": launches_bin[name]}
+               for name in ("expand_score", "expand_topr")}
+    print(json.dumps({"stage1_timings": timings,
+                      "device_breakdowns": breakdowns}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "expand_score", "route": "cuda",
-        "source": "tpu_hnsw_torch/csrc/expand_score.cu",
+        "source": "tpu_hnsw_torch/csrc/expand_score.cu "
+                  "(expand_score_launch)",
         "replaces": "tpu_hnsw/ops/pallas_expand.py:141",
-        "launches": launches,
-        "launches_by_path": {
-            "block_1Mx128": launches, "block_lifecycle": life_launches,
-            "binary_1Mx1536": launches_bin["expand_score"]},
+        "launches": sum(by_path["expand_score"].values()),
+        "launches_by_path": by_path["expand_score"],
         "max_abs_err": max(v["max_abs_err"] for v in variants),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "ms": head["ms"], "device_ms": random_timing["all_device_ms"],
+        "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
-        "timed_at": "int8 l2 Q=1024 p=8 S=256 d=128",
+        "timed_at": "int8 l2 Q=1024 p=8 S=256 d=128, random bids; ms: "
+                    "CUDA events over back-to-back calls, device_ms: the "
+                    "span of one call behind a spin kernel",
         "variants": variants,
+    }, {
+        "name": "expand_topr", "route": "cuda",
+        "source": "tpu_hnsw_torch/csrc/expand_score.cu "
+                  "(expand_topr_launch)",
+        "replaces": "tpu_hnsw/ops/pallas_expand.py:141 with the "
+                    "approx_min_k of tpu_hnsw/index/block.py:212",
+        "launches": sum(by_path["expand_topr"].values()),
+        "launches_by_path": by_path["expand_topr"],
+        "max_abs_err": max(v["max_abs_err"] for v in topr),
+        "ms": random_timing["fused_ms"],
+        "device_ms": random_timing["fused_device_ms"],
+        "plain_ms": random_timing["plain_fused_ms"],
+        "bound_ms": random_timing["fused_bound_ms"],
+        "bound_by": random_timing["fused_bound_by"],
+        "library_ms": None,
+        "composite_ms": random_timing["composite_ms"],
+        "composite_device_ms": random_timing["composite_device_ms"],
+        "composite_of": "expand_score_launch, then torch.topk over "
+                        "[Q, p*S] (the earlier design's stage 1)",
+        "timed_at": "int8 l2 Q=1024 p=8 S=256 d=128 r=40, random bids; "
+                    "ms and composite_ms: CUDA events over back-to-back "
+                    "calls, *device_ms: the span of one call behind a spin "
+                    "kernel",
+        "variants": topr,
     }, {
         "name": "hamming_scan", "route": "cuda",
         "source": "tpu_hnsw_torch/csrc/hamming_scan.cu",

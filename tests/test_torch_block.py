@@ -212,3 +212,87 @@ def test_block_index_defaults_to_the_card(tmp_path, monkeypatch):
     # the default itself, where a card is reported
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert BlockHnswIndex(CFG).device.type == "cuda"
+
+
+def _tie_state(seed=21, B=12, S=32, d=32, Q=16, p=4):
+    """Carried state whose int8 copy is exact: rows drawn from 6 patterns of
+    small integers with a 127 column (per-block and per-query scales are
+    1), so stage-1 scores equal the exact distances and tie in groups."""
+    rng = np.random.default_rng(seed)
+    pats = rng.integers(-1, 2, size=(6, d)).astype(np.int8)
+    pats[:, 0] = 127
+    rows = pats[rng.integers(0, 6, size=(B, S))]
+    block_ids = np.where(rng.random((B, S)) < 0.1, -1,
+                         np.arange(B * S).reshape(B, S)).astype(np.int32)
+    q = rng.integers(-1, 2, size=(Q, d)).astype(np.float32)
+    q[:, 0] = 127.0
+    bids = np.stack([rng.permutation(B)[:p] for _ in range(Q)]).astype(
+        np.int32)
+    x = rows.astype(np.float32)
+    return dict(blocks8=rows, x=x, blocks_sq=(x * x).sum(-1),
+                block_ids=block_ids, q=q, q_sq=(q * q).sum(1), bids=bids,
+                allowed=rng.random((B, S)) < 0.7)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_expand_blocks_2stage_ties_match_jax(metric, masked, monkeypatch):
+    """The port's two-stage expansion against JAX's
+    _expand_blocks_2stage_body on the same tie-heavy carried state: the
+    stage-2 distances equal exactly (integers in f32), and the ids agree
+    up to ties: below each query's k-th distance the same ids, each
+    returned id at its own exact distance. JAX's CPU approx_min_k orders
+    tied entries arbitrarily, so ids at the k-th place may differ; with
+    lax.top_k in its place (the same set, ordered by (score, position) as
+    the port's stage 1) the reference returns the port's ids exactly."""
+    import jax.numpy as jnp
+
+    from tpu_hnsw.config import Metric as JMetric
+    from tpu_hnsw.index.block import _expand_blocks_2stage_body
+    from tpu_hnsw.ops import topk as JT
+    from tpu_hnsw_torch.index.block import _expand_blocks_2stage
+
+    st = _tie_state()
+    B, S, d = st["x"].shape
+    k, rerank = 10, 40
+    allowed = st["allowed"] if masked else None
+
+    def reference():
+        jv, ji = _expand_blocks_2stage_body(
+            jnp.asarray(st["blocks8"]), jnp.asarray(st["blocks_sq"]),
+            jnp.asarray(st["block_ids"]), jnp.asarray(st["x"].reshape(-1, d)),
+            jnp.asarray(st["q"]), jnp.asarray(st["q_sq"]),
+            jnp.asarray(st["bids"]), k=k, rerank=rerank,
+            metric=JMetric(metric), score_scale=jnp.ones(B, jnp.float32),
+            allowed=None if allowed is None else jnp.asarray(allowed))
+        return np.asarray(jv), np.asarray(ji)
+
+    jv, ji = reference()
+    t = torch.from_numpy
+    v, i = _expand_blocks_2stage(
+        t(st["blocks8"]), t(st["blocks_sq"]), t(st["block_ids"]),
+        t(st["x"].reshape(-1, d)), t(st["q"]), t(st["q_sq"]),
+        t(st["bids"]), k=k, rerank=rerank, metric=Metric(metric),
+        score_scale=torch.ones(B), allowed=None if allowed is None
+        else t(allowed))
+    v, i = v.numpy(), i.numpy()
+    np.testing.assert_array_equal(v, jv)
+    kth = v[:, -1:]
+    for row in range(v.shape[0]):
+        below = v[row] < kth[row]
+        assert set(i[row][below]) == set(ji[row][below])
+    # every returned id at its exact distance (ids are flat slots here)
+    x = st["x"].reshape(-1, d)
+    live = i >= 0
+    dots = np.einsum("qkd,qd->qk", x[np.where(live, i, 0)], st["q"])
+    want = (st["q_sq"][:, None] + (x * x).sum(1)[np.where(live, i, 0)]
+            - 2 * dots) if metric == "l2" else -dots
+    np.testing.assert_array_equal(v[live], want[live])
+    # the case ties: some query returns equal distances
+    ties = (v[:, :, None] == v[:, None, :]).sum(-1) > 1
+    assert ties.any()
+    monkeypatch.setattr(JT, "topk_smallest_fast",
+                        lambda s, k, **_: JT.topk_smallest(s, k))
+    jv2, ji2 = reference()
+    np.testing.assert_array_equal(jv2, v)
+    np.testing.assert_array_equal(ji2, i)

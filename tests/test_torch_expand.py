@@ -18,6 +18,7 @@ import torch
 from tpu_hnsw_torch.config import Metric
 from tpu_hnsw_torch.index.block import _quantize_rows
 from tpu_hnsw_torch.ops import expand as X
+from tpu_hnsw_torch.ops import topk as T
 
 torch.set_num_threads(1)
 
@@ -238,3 +239,392 @@ def test_kernel_allowed_mask_on_card(dtype, dp):
     assert torch.equal(torch.isinf(want), dead[bids])
     scale = (args[1].max() + args[4].max()).item()
     assert _rel_err(got, want, scale) <= (1e-6 if dtype == "int8" else 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the fused stage-1 top-r: keys, plain version, and the kernel on the card
+# ---------------------------------------------------------------------------
+
+
+def _np_keys(scores, pos):
+    """numpy transcription of the ordered key: the f32 score's bits with
+    the magnitude flipped when negative (-0.0 as +0.0), above the
+    position."""
+    sc = np.where(scores == 0, np.float32(0), scores).astype(np.float32)
+    b = sc.view(np.int32)
+    b = b ^ ((b >> 31) & np.int32(0x7FFFFFFF))
+    return b.astype(np.int64) * (1 << 32) + pos
+
+
+def test_score_keys_order_and_round_trip():
+    """Keys order by (score, position) across signs, -0.0, tiny and
+    infinite scores, and decode back to the scores (-0.0 as +0.0)."""
+    sc = np.array([3.0, -0.0, -2.5, 0.0, np.inf, -1e-30, 1e-30, -2.5, 7.0,
+                   np.inf, -1e30], np.float32)
+    pos = np.arange(sc.size, dtype=np.int64)
+    keys = T.score_keys(_t(sc), _t(pos))
+    np.testing.assert_array_equal(keys.numpy(), _np_keys(sc, pos))
+    want = np.lexsort((pos, sc + np.float32(0)))  # -0.0 sorts as +0.0
+    np.testing.assert_array_equal(np.argsort(keys.numpy()), want)
+    d, p = T.decode_score_keys(keys)
+    np.testing.assert_array_equal(p.numpy(), pos)
+    np.testing.assert_array_equal(d.numpy().view(np.int32),
+                                  (sc + np.float32(0)).view(np.int32))
+
+
+def _tie_case(seed=9, B=10, S=16, dp=32, Q=9, p=4):
+    """Tie-heavy int8 data: small integers, rows drawn from 5 patterns, so
+    many scores tie at any r; dead rows, a mask, a zero query (IP scores
+    -0.0) and out-of-range block ids (-1 and B)."""
+    rng = np.random.default_rng(seed)
+    pats = rng.integers(-2, 3, size=(5, dp)).astype(np.int8)
+    blocks8 = pats[rng.integers(0, 5, size=(B, S))]
+    scale = np.full(B, 0.5, np.float32)
+    block_ids = np.where(rng.random((B, S)) < 0.15, -1,
+                         np.arange(B * S).reshape(B, S)).astype(np.int32)
+    allowed = rng.random((B, S)) < 0.8
+    qp = rng.integers(-2, 3, size=(Q, dp)).astype(np.float32)
+    qp[0] = 0.0
+    bids = rng.integers(0, B, size=(Q, p)).astype(np.int64)
+    bids[1, 0], bids[2, 3] = -1, B
+    bf = blocks8.astype(np.float32) * scale[:, None, None]
+    blocks_sq = (bf * bf).sum(-1).astype(np.float32)
+    return blocks8, scale, block_ids, allowed, qp, bids, blocks_sq
+
+
+def _np_topr(case, metric, r, masked):
+    """numpy transcription of expand_topr_reference: the int8 scores of
+    block.py:189-209 in f32, +inf where dead, masked or out of range, then
+    every key, sorted (the smallest min(r, p*S) are the top-r)."""
+    blocks8, scale, block_ids, allowed, qp, bids, blocks_sq = case
+    B, S, _ = blocks8.shape
+    Q, p = bids.shape
+    q8, q_scl = _numpy_q8(qp)
+    bad = (bids < 0) | (bids >= B)
+    b = np.where(bad, 0, bids)
+    dots_i = np.einsum("qpsd,qd->qps", blocks8[b].astype(np.int32),
+                       q8.astype(np.int32))
+    dots = dots_i.astype(np.float32) * (q_scl[:, None, None]
+                                        * scale[b][:, :, None])
+    q_sq = (qp * qp).sum(1).astype(np.float32)
+    if metric == "l2":
+        sc = np.maximum(q_sq[:, None, None] + blocks_sq[b] - np.float32(2)
+                        * dots, np.float32(0))
+    else:
+        sc = -dots
+    dead = (block_ids[b] < 0) | bad[:, :, None]
+    if masked:
+        dead |= ~allowed[b]
+    sc = np.where(dead, np.float32(np.inf), sc).astype(np.float32)
+    keys = _np_keys(sc.reshape(Q, p * S), np.arange(p * S, dtype=np.int64))
+    return np.sort(keys, axis=1), q_sq
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("r", [1, 7, 40, 64, 69])  # p*S = 64: r >= p*S too
+@pytest.mark.parametrize("masked", [False, True])
+def test_topr_reference_matches_numpy_keys(metric, r, masked):
+    """expand_topr_reference's keys equal the numpy transcription exactly,
+    on tie-heavy int8 data: ties at the r-th place go to the lower
+    position; dead, masked and out-of-range rows are +inf keys."""
+    case = _tie_case()
+    every, q_sq = _np_topr(case, metric, r, masked)
+    want = every[:, :r]
+    blocks8, scale, block_ids, allowed, qp, bids, blocks_sq = case
+    q8, q_scl = _quantize_rows(_t(qp))
+    kw = dict(q8=q8, q_scale=q_scl, score_scale=_t(scale))
+    if masked:
+        kw["allowed"] = _t(allowed)
+    d, pos = X.expand_topr_reference(
+        _t(blocks8), _t(blocks_sq), _t(block_ids), _t(qp), _t(q_sq),
+        _t(bids), Metric(metric), r, **kw)
+    assert d.shape == pos.shape == want.shape
+    np.testing.assert_array_equal(T.score_keys(d, pos).numpy(), want)
+    # the case ties across the r-th place and holds +inf rows
+    sc, _ = T.decode_score_keys(_t(every))
+    if r < sc.shape[1]:
+        assert (sc[:, r - 1] == sc[:, r]).any()
+    assert torch.isinf(sc).any()
+
+
+def test_cpu_topr_takes_the_plain_version_and_checks_r():
+    """On CPU tensors expand_topr runs its plain version (no launch), and
+    r outside [1, TOPR_MAX_R] raises as it does on the card."""
+    blocks8, scale, block_ids, _, qp, bids, blocks_sq = _tie_case()
+    q8, q_scl = _quantize_rows(_t(qp))
+    args = (_t(blocks8), _t(blocks_sq), _t(block_ids), _t(qp),
+            _t((qp * qp).sum(1)), _t(bids), Metric.L2)
+    kw = dict(q8=q8, q_scale=q_scl, score_scale=_t(scale))
+    before = (X.LAUNCHES, X.TOPR_LAUNCHES)
+    got = X.expand_topr(*args, 10, **kw)
+    want = X.expand_topr_reference(*args, 10, **kw)
+    assert (X.LAUNCHES, X.TOPR_LAUNCHES) == before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for r in (0, X.TOPR_MAX_R + 1):
+        with pytest.raises(ValueError, match="expand_topr"):
+            X.expand_topr(*args, r, **kw)
+
+
+@pytest.mark.parametrize("S,misfits", [
+    (32, {"blocks_sq", "block_ids", "allowed"}),  # 16-byte copies
+    (12, {"allowed"}),                            # 4-byte copies
+    (6, set()),                                   # filter read in place
+])
+def test_row_info_alignment_matches_the_copy_width(S, misfits):
+    """The scorer copies a run's row ids, norms and filter bytes 16 bytes
+    at a time when S % 16 == 0, else 4 (filter bytes only when S % 4 ==
+    0): a view starting one element off raises where its copy would
+    fault, and passes where it would not."""
+    B = 3
+
+    def at(dtype, off):
+        buf = torch.zeros(B * S + 16, dtype=dtype)
+        assert buf.data_ptr() % 16 == 0
+        return buf[off:off + B * S].view(B, S)
+
+    names = ("blocks_sq", "block_ids", "allowed")
+    dtypes = (torch.float32, torch.int32, torch.bool)
+    aligned = [at(dt, 0) for dt in dtypes]
+    X._check_row_info_aligned("expand_topr", S, *aligned)
+    for i, name in enumerate(names):
+        ops = list(aligned)
+        ops[i] = at(dtypes[i], 1)
+        if name in misfits:
+            with pytest.raises(ValueError, match=name):
+                X._check_row_info_aligned("expand_topr", S, *ops)
+        else:
+            X._check_row_info_aligned("expand_topr", S, *ops)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _int8_args(dev, seed, B, S, dp, Q, p, bids=None):
+    """(args, kw) of an int8 call on the card: quantised normal rows with
+    10% dead, normal queries, uniform bids unless given."""
+    rng = np.random.default_rng(seed)
+    x = _t(rng.normal(size=(B, S, dp)).astype(np.float32)).to(dev)
+    scale = torch.clamp_min(x.abs().amax(dim=(1, 2)), 1e-30) / 127
+    blocks = torch.round(x / scale[:, None, None]).to(torch.int8)
+    ids = np.arange(B * S).reshape(B, S)
+    block_ids = _t(np.where(rng.random((B, S)) < 0.1, -1, ids).astype(
+        np.int32)).to(dev)
+    q = _t(rng.normal(size=(Q, dp)).astype(np.float32)).to(dev)
+    if bids is None:
+        bids = rng.integers(0, B, size=(Q, p))
+    q8, q_scl = _quantize_rows(q)
+    args = [blocks, (x * x).sum(-1), block_ids, q, (q * q).sum(1),
+            _t(np.asarray(bids, np.int64)).to(dev), Metric.L2]
+    return args, dict(q8=q8, q_scale=q_scl, score_scale=scale)
+
+
+def _assert_int8_exact(args, kw, rs=(1, 40)):
+    """Both entries against their plain versions on the card: all scores
+    bit-equal, top-r keys equal for each r (the fused entry counts one
+    launch of each counter)."""
+    plain = X.expand_score_reference(*args, **kw)
+    got = X.expand_score(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    for r in rs:
+        before = (X.LAUNCHES, X.TOPR_LAUNCHES)
+        d, pos = X.expand_topr(*args, r, **kw)
+        torch.cuda.synchronize()
+        assert (X.LAUNCHES, X.TOPR_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+        wd, wpos = X.topr_of_scores(plain, r)
+        assert torch.equal(T.score_keys(d, pos), T.score_keys(wd, wpos)), r
+
+
+@pytest.mark.cuda
+def test_misaligned_row_info_raises_on_card():
+    """A block_ids, blocks_sq or allowed view one element off its 16-byte
+    copy width (S = 32) raises ValueError in both entries before any
+    launch, and the card still serves the aligned call after."""
+    dev = _card()
+    args, kw = _int8_args(dev, 40, B=6, S=32, dp=64, Q=8, p=2)
+    allowed = torch.ones((6, 32), dtype=torch.bool, device=dev)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=dev)
+        view = buf[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for i, name in ((1, "blocks_sq"), (2, "block_ids"), (None, "allowed")):
+        bad = list(args)
+        kw2 = dict(kw, allowed=allowed)
+        if i is None:
+            kw2["allowed"] = shifted(allowed)
+        else:
+            bad[i] = shifted(args[i])
+        before = (X.LAUNCHES, X.TOPR_LAUNCHES)
+        with pytest.raises(ValueError, match=name):
+            X.expand_score(*bad, **kw2)
+        with pytest.raises(ValueError, match=name):
+            X.expand_topr(*bad, 10, **kw2)
+        assert (X.LAUNCHES, X.TOPR_LAUNCHES) == before
+    _assert_int8_exact(args, kw)
+
+
+@pytest.mark.cuda
+def test_expand_one_hot_fragments_on_card():
+    """Hand-computed scores pin the m16n8k32 s8 fragment layout: row s of
+    block b is 1 at column (b*S + s) % dp, query i is i + 1 at column
+    3i % dp, unit scales, IP: the score is -(i + 1) where the columns
+    meet and -0 elsewhere. dp = 64 (two k-steps and both 16-byte halves),
+    20 queries probing the same blocks (three n-fragments over both
+    ldmatrix groups), S = 48 (three m-fragments; a warp's second one half
+    past the rows)."""
+    dev = _card()
+    B, S, dp, Q, p = 5, 48, 64, 20, 3
+    col = (np.arange(B * S) % dp).reshape(B, S)
+    blocks = np.zeros((B, S, dp), np.int8)
+    np.put_along_axis(blocks, col[..., None], 1, axis=2)
+    qcol = (3 * np.arange(Q)) % dp
+    q = np.zeros((Q, dp), np.float32)
+    q[np.arange(Q), qcol] = np.arange(Q) + 1
+    bids = np.tile(np.array([4, 0, 2]), (Q, 1))
+    want = np.where(col[bids] == qcol[:, None, None],
+                    -(np.arange(Q) + 1.0)[:, None, None], -0.0).astype(
+        np.float32)
+    args = [_t(blocks).to(dev), torch.zeros((B, S), device=dev),
+            torch.zeros((B, S), dtype=torch.int32, device=dev),
+            _t(q).to(dev), torch.zeros(Q, device=dev),
+            _t(bids.astype(np.int64)).to(dev), Metric.IP]
+    kw = dict(q8=_t(q.astype(np.int8)).to(dev),
+              q_scale=torch.ones(Q, device=dev),
+              score_scale=torch.ones(B, device=dev))
+    got = X.expand_score(*args, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    for r in (1, 5, 48, 100):
+        d, pos = X.expand_topr(*args, r, **kw)
+        wd, wpos = X.topr_of_scores(_t(want), r)
+        assert torch.equal(T.score_keys(d.cpu(), pos.cpu()),
+                           T.score_keys(wd, wpos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,p", [(200, 1), (300, 2)])
+def test_expand_one_block_probed_by_every_query_on_card(Q, p):
+    """Every query probes block 3, so its run spans many CTAs (and, with a
+    second random probe, runs of other blocks sit between): exact against
+    the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(Q)
+    bids = np.concatenate([np.full((Q, 1), 3),
+                           rng.integers(0, 9, size=(Q, p - 1))], axis=1)
+    args, kw = _int8_args(dev, 5, 9, 256, 128, Q, p, bids=bids)
+    _assert_int8_exact(args, kw, rs=(1, 40, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [8, 12])  # 12 x 100 keys: the torch.topk merge
+def test_expand_routed_bids_with_invalid_on_card(p):
+    """Duplicate-free per-query bids (as routing gives) with -1 and B
+    entries: out-of-range pairs score +inf on every row, the rest exact."""
+    dev = _card()
+    rng = np.random.default_rng(8)
+    B, Q = 40, 150
+    bids = np.stack([rng.permutation(B)[:p] for _ in range(Q)])
+    bids[rng.random((Q, p)) < 0.1] = -1
+    bids[5, 7] = B
+    args, kw = _int8_args(dev, 6, B, 256, 128, Q, p, bids=bids)
+    plain = X.expand_score_reference(*args, **kw)
+    assert torch.isinf(plain[torch.from_numpy(bids < 0).to(dev)]).all()
+    _assert_int8_exact(args, kw, rs=(1, 40, 100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [44, 30])  # 4-byte mask copies; mask unstaged
+def test_expand_odd_block_sizes_masked_on_card(S):
+    """Blocks whose size is not a multiple of 16 (the rows' ids, norms and
+    filter bytes staged 4 bytes at a time) or of 4 (the filter read from
+    device memory), with a filter mask: both entries exact."""
+    dev = _card()
+    rng = np.random.default_rng(S)
+    args, kw = _int8_args(dev, S, 30, S, 128, 100, 6)
+    kw["allowed"] = _t(rng.random((30, S)) < 0.5).to(dev)
+    _assert_int8_exact(args, kw, rs=(1, 20, S))
+
+
+@pytest.mark.cuda
+def test_expand_blocks_larger_than_a_pass_on_card():
+    """Blocks of 300 rows (two passes of 256 rows a run) with a mask: all
+    scores bit-equal, and stage 1 (all scores and a keyed top-r above the
+    fused entry's 256 rows) keys equal to the plain version's."""
+    from tpu_hnsw_torch.index.block import _stage1
+
+    dev = _card()
+    rng = np.random.default_rng(300)
+    args, kw = _int8_args(dev, 7, 20, 300, 128, 90, 5)
+    kw["allowed"] = _t(rng.random((20, 300)) < 0.5).to(dev)
+    plain = X.expand_score_reference(*args, **kw)
+    assert torch.equal(X.expand_score(*args, **kw), plain)
+    d, pos = _stage1(*args, 40, **kw)
+    wd, wpos = X.topr_of_scores(plain, 40)
+    assert torch.equal(T.score_keys(d, pos), T.score_keys(wd, wpos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp", [36, 128, 1536])  # 36: 4-byte copies
+@pytest.mark.parametrize("Q", [76, 2048])
+def test_expand_topr_int8_exact_on_card(dp, Q):
+    """Stage 1 as block.py runs it, r in {1, 40, 128} (the fused entry)
+    and 129 (all scores and a keyed top-r): keys exactly equal to the
+    plain version's; the all-scores entry bit-equal too."""
+    from tpu_hnsw_torch.index.block import _stage1
+
+    dev = _card()
+    args, kw = _int8_args(dev, dp + Q, 300, 256, dp, Q, 8)
+    plain = X.expand_score_reference(*args, **kw)
+    assert torch.equal(X.expand_score(*args, **kw), plain)
+    for r in (1, 40, 128, 129):
+        before = (X.LAUNCHES, X.TOPR_LAUNCHES)
+        d, pos = _stage1(*args, r, **kw)
+        torch.cuda.synchronize()
+        fused = r <= X.TOPR_MAX_R
+        assert (X.LAUNCHES, X.TOPR_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + fused)
+        wd, wpos = X.topr_of_scores(plain, r)
+        assert torch.equal(T.score_keys(d, pos), T.score_keys(wd, wpos)), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dp,rtol", [("float32", 128, 1e-5),
+                                           ("float32", 30, 1e-5),
+                                           ("bfloat16", 128, 1e-3)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_expand_topr_float_on_card(dtype, dp, rtol, metric):
+    """f32 and bf16: the returned scores equal the plain scores at the
+    returned positions within rtol of the cancellation scale, the r-th
+    scores agree within the same bound, and every position the plain
+    version scores below its r-th score minus the bound is returned."""
+    dev = _card()
+    rng = np.random.default_rng(dp)
+    B, S, Q, p, r = 60, 256, 76, 8, 40
+    x = _t(rng.normal(size=(B, S, dp)).astype(np.float32)).to(dev)
+    blocks = x.to(getattr(torch, dtype))
+    block_ids = _t(rng.integers(-1, 100, size=(B, S)).astype(
+        np.int32)).to(dev)
+    q = _t(rng.normal(size=(Q, dp)).astype(np.float32)).to(dev)
+    args = (blocks, (blocks.float() ** 2).sum(-1), block_ids, q,
+            (q * q).sum(1), _t(rng.integers(0, B, size=(Q, p))).to(dev),
+            Metric(metric))
+    plain = X.expand_score_reference(*args).reshape(Q, -1)
+    d, pos = X.expand_topr(*args, r)
+    cscale = (args[1].max() + args[4].max()).item()
+    at = plain.gather(1, pos)
+    fin = torch.isfinite(at)
+    assert torch.equal(fin, torch.isfinite(d))
+    assert ((d - at).abs()[fin] <= rtol * (cscale + at.abs()[fin])).all()
+    wd, _ = X.topr_of_scores(plain, r)
+    tol = rtol * (cscale + wd[:, -1].abs())
+    assert ((d[:, -1] - wd[:, -1]).abs() <= tol).all()
+    must = plain < (wd[:, -1] - tol)[:, None]
+    got = torch.zeros_like(must).scatter_(1, pos, True)
+    assert (got | ~must).all()

@@ -85,3 +85,19 @@ def test_topk_matches_reference(width, k):
         v, i = fn(torch.from_numpy(s), k)
         np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
         np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("k", [1, 7, 30])
+def test_topk_by_index_matches_lax_top_k_on_signed_ties(k):
+    """The keyed top-k on signed, tie-heavy scores (no zeros: lax.top_k
+    may order -0.0 and +0.0 apart) gives lax.top_k(-d)'s values and its
+    order, ties to the lower index."""
+    from jax import lax
+
+    rng = np.random.default_rng(k)
+    d = (rng.choice([-3, -2, -1, 1, 2, 3], size=(16, 50)) * 0.5
+         ).astype(np.float32)
+    jv, ji = lax.top_k(-jnp.asarray(d), k)
+    v, i = T.topk_smallest_by_index(torch.from_numpy(d), k)
+    np.testing.assert_array_equal(v.numpy(), -np.asarray(jv))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))

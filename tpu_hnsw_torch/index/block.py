@@ -4,11 +4,12 @@
 Vectors are k-means clustered and packed into ``[B, S, d]`` blocks of S
 spatially close rows. A query scores the B block centroids (one ``[Q, B]``
 GEMM), keeps its ``probes`` nearest blocks, and expands them: every row of
-each selected block is scored by the ``expand_score`` kernel
-(``ops/expand.py``) from a reduced-precision scoring copy (int8 with
-per-block scales by default, or bf16); the best ``rerank_width`` rows per
-query are re-scored exactly in f32 from the stored blocks and the top-k
-returned. ``two_stage=False`` scores the stored blocks directly.
+each selected block is scored from a reduced-precision scoring copy (int8
+with per-block scales by default, or bf16) by the expand kernel
+(``ops/expand.py``), whose fused entry keeps each query's best
+``rerank_width`` rows; those are re-scored exactly in f32 from the stored
+blocks and the top-k returned.
+``two_stage=False`` scores the stored blocks directly.
 
 Deletes tombstone rows in place; inserts go to a flat-scanned spill tail
 and are folded into blocks by ``compact()``. A filter mask over element
@@ -85,17 +86,28 @@ def _slots_of(bids, sel, S: int):
 # ---------------------------------------------------------------------------
 
 
+def _stage1(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
+            r: int, **kw):
+    """Each query's ``min(r, p * S)`` best rows of its selected blocks
+    (block.py:141, 210-212): (scores ascending, positions in the
+    ``[Q, p*S]`` expansion), ordered by (score, position). The fused
+    top-r entry where it takes r; else every score and a keyed top-r."""
+    if X.fused_topr(r, blocks.shape[1]):
+        return X.expand_topr(blocks, blocks_sq, block_ids, q, q_sq, bids,
+                             metric, r, **kw)
+    return X.topr_of_scores(X.expand_score(
+        blocks, blocks_sq, block_ids, q, q_sq, bids, metric, **kw), r)
+
+
 def _expand_blocks(blocks, blocks_sq, block_ids, q, q_sq, bids, *, k: int,
                    metric: Metric, allowed=None):
     """Single-stage expansion (block.py:106-145): score every row of each
     query's selected blocks from the stored blocks, return the top-k as
     (scores ``[Q, k]`` ascending, ids ``[Q, k]``, -1 padded). ``allowed``
     ``[B, S]`` bool masks filtered-out rows like dead ones."""
-    Q, p = bids.shape
     S = blocks.shape[1]
-    sc = X.expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
-                        allowed=allowed)
-    vals, sel = T.topk_smallest_fast(sc.reshape(Q, p * S), k)
+    vals, sel = _stage1(blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
+                        k, allowed=allowed)
     ids = block_ids.reshape(-1)[_slots_of(bids, sel, S)]
     return vals, torch.where(torch.isfinite(vals), ids, -1)
 
@@ -104,24 +116,21 @@ def _expand_blocks_2stage(blocks_score, blocks_sq, block_ids, flat_exact, q,
                           q_sq, bids, *, k: int, rerank: int, metric: Metric,
                           score_scale=None, allowed=None):
     """Two-stage expansion (block.py:153-237): the kernel scores the
-    selected blocks from the int8 (``score_scale`` given) or bf16 copy, the
-    best ``rerank`` rows per query are re-scored exactly in f32 from
-    ``flat_exact [B*S, d]``, and the top-k is returned. ``allowed`` masks
-    stage 1 in the kernel and stage 2 again: when fewer than ``rerank``
-    allowed rows exist, top-r still hands back disallowed positions."""
-    Q, p = bids.shape
+    selected blocks from the int8 (``score_scale`` given) or bf16 copy and
+    keeps the best ``rerank`` rows per query, which are re-scored exactly
+    in f32 from ``flat_exact [B*S, d]``, and the top-k is returned.
+    ``allowed`` masks stage 1 in the kernel and stage 2 again: when fewer
+    than ``rerank`` allowed rows exist, top-r still hands back disallowed
+    positions."""
+    p = bids.shape[1]
     S, dp = blocks_score.shape[1], blocks_score.shape[2]
     qp = _pad_cols(q, dp)  # zero columns change neither dots nor norms
+    kw = {"allowed": allowed}
     if score_scale is not None:
         q8, q_scl = _quantize_rows(qp)
-        sc = X.expand_score(blocks_score, blocks_sq, block_ids, qp, q_sq,
-                            bids, metric, q8=q8, q_scale=q_scl,
-                            score_scale=score_scale, allowed=allowed)
-    else:
-        sc = X.expand_score(blocks_score, blocks_sq, block_ids, qp, q_sq,
-                            bids, metric, allowed=allowed)
-    r = min(rerank, p * S)
-    _, sel = T.topk_smallest_fast(sc.reshape(Q, p * S), r)
+        kw.update(q8=q8, q_scale=q_scl, score_scale=score_scale)
+    _, sel = _stage1(blocks_score, blocks_sq, block_ids, qp, q_sq, bids,
+                     metric, min(rerank, p * S), **kw)
     slots = _slots_of(bids, sel, S)
     cand_ids = block_ids.reshape(-1)[slots]
     v = flat_exact[slots].float()                     # [Q, r, d]
@@ -135,7 +144,8 @@ def _expand_blocks_2stage(blocks_score, blocks_sq, block_ids, flat_exact, q,
     if allowed is not None:
         dead |= ~allowed.reshape(-1)[slots]
     sc2 = torch.where(dead, torch.inf, sc2)
-    vals, sel2 = T.topk_smallest(sc2, k)
+    # lax.top_k's order (block.py:232): ties to the earlier candidate
+    vals, sel2 = T.topk_smallest_by_index(sc2, k)
     ids = torch.gather(cand_ids, 1, sel2)
     return vals, torch.where(torch.isfinite(vals), ids, -1)
 

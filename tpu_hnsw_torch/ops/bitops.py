@@ -141,7 +141,7 @@ class BinaryFlatIndex:
             d, i = T.topk_smallest_by_index(
                 H.distances(h, pq[s:s + step], self.pop, self.metric), k)
             ds.append(d)
-            ids.append(i)
+            ids.append(i.to(torch.int32))
         return torch.cat(ds), torch.cat(ids)
 
     def search(self, q_packed, k: int = 10):

@@ -104,7 +104,8 @@ def distances(h: torch.Tensor, pop_q: torch.Tensor, pop_x: torch.Tensor,
 def hamming_topk_reference(q, x, pop_q, pop_x, k: int, metric: str):
     """Plain PyTorch version of :func:`hamming_topk` (same arguments)."""
     d = distances(hamming_scan_reference(q, x), pop_q, pop_x, metric)
-    return T.topk_smallest_by_index(d, k)
+    d, ids = T.topk_smallest_by_index(d, k)
+    return d, ids.to(torch.int32)
 
 
 def _check(name, t, shape, dtype, device):
@@ -210,5 +211,6 @@ def hamming_topk(q: torch.Tensor, x: torch.Tensor, pop_q: torch.Tensor,
             per, ns, k, int(metric == "jaccard"))
     LAUNCHES += 1
     TOPK_LAUNCHES += 1
-    return T.decode_keys(torch.topk(cand, k, dim=1, largest=False,
-                                    sorted=True).values)
+    d, ids = T.decode_score_keys(torch.topk(cand, k, dim=1, largest=False,
+                                            sorted=True).values)
+    return d, ids.to(torch.int32)
