@@ -76,7 +76,7 @@ import numpy as np
 import torch
 
 from tpu_hnsw_torch import (BinaryFlatIndex, BinaryHnswIndex, BlockHnswIndex,
-                            FlatIndex, HnswConfig, Metric)
+                            FlatIndex, HnswConfig, HnswIndex, Metric)
 from tpu_hnsw_torch.index.block import (_make_score_copy, _pad_cols,
                                         _quantize_rows, _route_exact)
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
@@ -553,7 +553,7 @@ def main_path(base: np.ndarray, queries: np.ndarray, card: str,
           f"{NQ} queries, min {min(windows):.1f}, max {max(windows):.1f}) "
           f"at probes {chosen}, {CHUNK}-query chunks, peak device memory "
           f"{out['peak_mem_GB']:.2f} GB [{card}]", flush=True)
-    return out, idx
+    return out, idx, gt
 
 
 def timed_build(name: str):
@@ -670,6 +670,310 @@ def lifecycle_phase(idx, base: np.ndarray, queries: np.ndarray, chosen: int,
     print(f"compact {out['compact_s']:.3f} s ({idx.n_blocks} blocks); "
           f"save {out['save_s']:.3f} s, load {out['load_s']:.3f} s: "
           f"identical ids and distances [{card}]", flush=True)
+    return out
+
+
+# bench.py:258-261, cheapest first: (descent_ef, ef_search, expand,
+# max_steps); max_steps 0 runs the beam to convergence
+GRAPH_LADDER = ((16, 16, 3, 4), (24, 16, 3, 4), (16, 16, 3, 5),
+                (16, 16, 4, 4), (24, 16, 2, 5), (8, 16, 4, 5), (8, 24, 4, 6),
+                (8, 24, 4, 7), (8, 40, 4, 9), (8, 64, 4, 0), (8, 128, 1, 0),
+                (8, 200, 1, 0))
+N_DELETE = 1_000           # keeps compact's repair batch near 32k rows
+BIN_GRAPH_N = 1_000_000    # rows of the binary graph (cut first if slow)
+JACCARD_GRAPH_N = 100_000
+
+
+def ladder_kw(point) -> dict:
+    dce, ef, exp, ms = point
+    return dict(ef_search=ef, expand=exp, descent_ef=dce, max_steps=ms)
+
+
+def walk_ladder(search, grade, card: str, what: str):
+    """The first GRAPH_LADDER point whose ``grade(search(kw))`` reaches
+    TARGET_RECALL: (search kwargs, grade, result)."""
+    for point in GRAPH_LADDER:
+        kw = ladder_kw(point)
+        res = search(kw)
+        r = grade(res)
+        print(f"{what} {json.dumps(kw)}: recall@10 {r:.4f} [{card}]",
+              flush=True)
+        if r >= TARGET_RECALL:
+            return kw, r, res
+    raise AssertionError(f"{what}: no ladder point reached the target")
+
+
+def qps_windows(search_chunk, n_queries: int, reps: int = 9):
+    """QPS over 1024-query chunks: windows that each end in a synchronize
+    and the host fetch of the last chunk's ids; (median, windows)."""
+    def serve_pass():
+        for s in range(0, n_queries, CHUNK):
+            last = search_chunk(s)
+        torch.cuda.synchronize()
+        return np.asarray(last.cpu() if isinstance(last, torch.Tensor)
+                          else last)
+
+    serve_pass()  # warm-up
+    windows = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        serve_pass()
+        windows.append(n_queries / (time.perf_counter() - t0))
+    return float(np.median(windows)), windows
+
+
+def graph_phase(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
+                card: str, dev: torch.device):
+    """HnswIndex at 1M x 128: bulk build from a CUDA tensor, bench.py's
+    ladder to recall@10 >= 0.95, QPS, counters, descent routing at the same
+    point, a profiled chunk. Returns (numbers, index, search kwargs,
+    breakdown)."""
+    out = {}
+    cfg = HnswConfig(dim=DIM, m=16, ef_construction=64, seed=0)
+    xdev = torch.from_numpy(base).to(dev)
+    qdev = torch.from_numpy(queries).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    idx = HnswIndex(cfg, device=dev).build(xdev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["build_vps"] = N / out["build_s"]
+    out["build_stages"] = idx.build_stats["stages"]
+    del xdev
+    st = idx.stats()
+    out["bytes_per_element"] = st["bytes_per_element"]
+    out["level_counts"] = st["level_counts"]
+    print(f"graph build from a CUDA tensor: {out['build_s']:.3f} s, "
+          f"{out['build_vps']:.1f} vec/s, stages "
+          f"{json.dumps(out['build_stages'])}, levels {st['level_counts']}, "
+          f"{st['bytes_per_element']} bytes/element [{card}]", flush=True)
+    kw, out["recall"], (d, ids) = walk_ladder(
+        lambda kw: idx.search(qdev, k=10, **kw),
+        lambda res: recall_at_k(res[1], gt, 10), card, "graph 1M x 128")
+    out["point"] = kw
+    assert d.shape == (NQ, 10) and np.isfinite(d).all()
+    assert ((ids >= 0) & (ids < N)).all()
+    exact = np.sqrt(((queries[:, None, :] - base[ids]) ** 2).sum(-1))
+    assert np.abs(d.astype(np.float64) ** 2 - exact.astype(np.float64) ** 2
+                  ).max() <= sq_bound(base, queries), "graph distances"
+    out["qps"], out["qps_windows"] = qps_windows(
+        lambda s: idx.search_device(qdev[s:s + CHUNK], k=10, **kw)[1], NQ)
+    _, _, counters = idx.search_with_stats(qdev, k=10, **kw)
+    out["counters"] = counters
+    _, ids_desc = idx.search(qdev, k=10, route="descent", **kw)
+    out["descent_recall"] = recall_at_k(ids_desc, gt, 10)
+    out["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"graph QPS {out['qps']:.1f} (median of 9 windows of {NQ} "
+          f"queries, min {min(out['qps_windows']):.1f}, max "
+          f"{max(out['qps_windows']):.1f}) at {json.dumps(kw)}, recall@10 "
+          f"{out['recall']:.4f} (scan routing; descent routing "
+          f"{out['descent_recall']:.4f}); per query {json.dumps(counters)}; "
+          f"peak device memory {out['peak_mem_GB']:.2f} GB [{card}]",
+          flush=True)
+    qchunk = qdev[:CHUNK]
+    breakdown = device_breakdown(
+        lambda: idx.search_device(qchunk, k=10, **kw), card,
+        f"graph path, one {CHUNK}-query HnswIndex.search_device chunk")
+    return out, idx, kw, breakdown
+
+
+def block_graph_routed(base: np.ndarray, queries: np.ndarray, gt, card: str,
+                       dev: torch.device) -> dict:
+    """BlockHnswIndex(routing="graph") on the same data: the centroid graph
+    routes, the fused stage 1 expands. Its launch counters are reset here
+    and read by the caller."""
+    out = {}
+    cfg = HnswConfig(dim=DIM, m=16, ef_construction=64, seed=0)
+    qdev = torch.from_numpy(queries).to(dev)
+    bidx = BlockHnswIndex(cfg, block_size=BLOCK, routing="graph",
+                          device=dev).build(torch.from_numpy(base).to(dev))
+    st = bidx.build_stats
+    out["build_s"], out["build_vps"] = st["total_s"], st["vectors_per_sec"]
+    out["centroid_graph_s"] = st["centroid_graph_s"]
+    assert bidx.stats()["routing"] == "graph"
+    print(f"graph-routed block build: {st['total_s']} s "
+          f"({st['vectors_per_sec']} vec/s), centroid graph over "
+          f"{bidx.n_blocks} centroids {st['centroid_graph_s']} s [{card}]",
+          flush=True)
+    # the first grid probe count at TARGET_RECALL, else the best: the
+    # centroid graph's beam misses some nearest centroids (PERF.md §7)
+    grid = {}
+    for p in (p for p in PROBE_GRID if p <= bidx.n_blocks):
+        _, ids = bidx.search(qdev, k=10, probes=p)
+        grid[p] = recall_at_k(ids, gt, 10)
+        print(f"graph-routed probes {p}: recall@10 {grid[p]:.4f} [{card}]",
+              flush=True)
+        if grid[p] >= TARGET_RECALL:
+            break
+    out["probes"] = min(grid, key=lambda p: (grid[p] < TARGET_RECALL,
+                                             -grid[p] if grid[p]
+                                             < TARGET_RECALL else p))
+    out["recall"], out["grid"] = grid[out["probes"]], grid
+    out["reached_target"] = out["recall"] >= TARGET_RECALL
+    assert out["recall"] >= 0.9, "graph routing lost the blocks"
+    out["qps"], out["qps_windows"] = qps_windows(
+        lambda s: bidx.search_device(qdev[s:s + CHUNK], k=10,
+                                     probes=out["probes"])[1], NQ, 3)
+    print(f"graph-routed block QPS {out['qps']:.1f} (median of 3 windows) "
+          f"at probes {out['probes']}, recall@10 {out['recall']:.4f} "
+          f"(target {TARGET_RECALL} reached: {out['reached_target']}) "
+          f"[{card}]", flush=True)
+    return out
+
+
+def graph_lifecycle(idx, base: np.ndarray, queries: np.ndarray, kw: dict,
+                    card: str, dev: torch.device) -> dict:
+    """Wave adds, deletes, compact, a filtered search_iterative and a
+    save/load round trip on the 1M x 128 HnswIndex."""
+    out = {}
+    qdev = torch.from_numpy(queries).to(dev)
+    rng = np.random.default_rng(7)
+    extra = (base[rng.integers(0, N, N_ADD)]
+             + rng.normal(0.0, 0.5, size=(N_ADD, DIM))).astype(np.float32)
+    t0 = time.perf_counter()
+    new_ids = idx.add(extra)
+    torch.cuda.synchronize()
+    out["add_s"] = time.perf_counter() - t0
+    assert (new_ids == np.arange(N, N + N_ADD)).all() and idx.n == N + N_ADD
+    # each added row finds itself: at the serving point (a few beam steps)
+    # and with the beam run to convergence
+    for name, skw in (("added_found", kw),
+                      ("added_found_converged", {**kw, "ef_search": 64,
+                                                 "max_steps": 0})):
+        _, ids = idx.search(extra[:256], k=1, **skw)
+        out[name] = float((ids[:, 0] == new_ids[:256]).mean())
+    print(f"graph add {N_ADD} rows (waves of {idx.cfg.wave_size}): "
+          f"{out['add_s']:.3f} s; of 256 added rows, "
+          f"{out['added_found']:.4f} find themselves first at the serving "
+          f"point, {out['added_found_converged']:.4f} with ef 64 run to "
+          f"convergence [{card}]", flush=True)
+    assert out["added_found_converged"] >= 0.9
+
+    victims = rng.choice(N + N_ADD, N_DELETE, replace=False)
+    idx.delete(victims)
+    live = np.setdiff1d(np.arange(N + N_ADD), victims)
+    every = np.concatenate([base, extra])
+    lflat = FlatIndex(torch.from_numpy(every[live]).to(dev), Metric.L2,
+                      device=dev)
+    lgt = live[lflat.search(qdev, k=10, exact=True)[1]]
+    del lflat, every
+    _, ids = idx.search(qdev, k=10, **kw)
+    assert not np.isin(ids, victims).any(), "a deleted id came back"
+    out["recall_before_compact"] = recall_at_k(ids, lgt, 10)
+    t0 = time.perf_counter()
+    out["repaired"] = idx.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    _, ids = idx.search(qdev, k=10, **kw)
+    assert not np.isin(ids, victims).any(), "a deleted id came back"
+    out["recall_after_compact"] = recall_at_k(ids, lgt, 10)
+    print(f"graph delete {N_DELETE} ids, compact {out['compact_s']:.3f} s: "
+          f"{out['repaired']} lists repaired; recall@10 against the live "
+          f"rows {out['recall_before_compact']:.4f} before, "
+          f"{out['recall_after_compact']:.4f} after [{card}]", flush=True)
+
+    passes = np.random.default_rng(FILTER_SEED + 1).random(N + N_ADD) \
+        < FILTER_SHARE
+    t0 = time.perf_counter()
+    _, ids = idx.search_iterative(queries[:CHUNK], k=10,
+                                  predicate=lambda i: passes[i])
+    out["iterative_s"] = time.perf_counter() - t0
+    got = ids[ids >= 0]
+    assert passes[got].all() and not np.isin(got, victims).any()
+    out["iterative_filled"] = float((ids >= 0).mean())
+    print(f"graph search_iterative, 10% predicate, {CHUNK} queries: "
+          f"{out['iterative_s']:.3f} s, {out['iterative_filled']:.4f} of "
+          f"slots filled, every id passes [{card}]", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        idx.save(tmp)
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx2 = HnswIndex.load(tmp, device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+    d1, i1 = idx.search(qdev, k=10, **kw)
+    d2, i2 = idx2.search(qdev, k=10, **kw)
+    assert np.array_equal(i1, i2) and np.array_equal(d1, d2), "save/load"
+    del idx2
+    print(f"graph save {out['save_s']:.3f} s, load {out['load_s']:.3f} s: "
+          f"identical ids and distances [{card}]", flush=True)
+    return out
+
+
+def chunked_search(index, q, **kw):
+    """BinaryHnswIndex.search over CHUNK-query slices (bounds the step's
+    [Q, expand * 2m, d] gathers at d = 1536)."""
+    parts = [index.search(q[s:s + CHUNK], **kw) for s in range(0, len(q),
+                                                                CHUNK)]
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))
+
+
+def binary_graph(bits_dev, qbits: np.ndarray, qp, xp, gt_d, gt, card: str,
+                 dev: torch.device) -> dict:
+    """BinaryHnswIndex(engine="graph") at 1536 bits: hamming over the first
+    BIN_GRAPH_N rows (the ladder to tie-aware recall@10 >= 0.95, exact
+    integer distances, QPS) and jaccard (rerank_k=100) over the first
+    JACCARD_GRAPH_N rows (exact distances)."""
+    out = {"rows": BIN_GRAPH_N}
+    n = BIN_GRAPH_N
+    if n < N:
+        out["reduced"] = f"hamming graph over the first {n} of {N} rows"
+        gt_d, gt = BinaryFlatIndex(xp[:n], metric="hamming",
+                                   device=dev).search(qp, k=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gidx = BinaryHnswIndex(BIN_DIM, "hamming", device=dev).build(
+        bits_dev[:n])
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["build_stages"] = gidx.inner.build_stats["stages"]
+    print(f"binary graph (hamming) build over {n} rows: "
+          f"{out['build_s']:.3f} s, stages {json.dumps(out['build_stages'])}"
+          f" [{card}]", flush=True)
+
+    def grade(res):
+        true = true_hamming(qp, xp, res[1])
+        grade.true = true
+        return float((true <= gt_d[:, 9:10]).mean())
+
+    kw, out["tie_recall"], (d, ids) = walk_ladder(
+        lambda kw: chunked_search(gidx, qbits, k=10, **kw), grade, card,
+        "binary graph hamming (tie-aware)")
+    out["point"], out["id_recall"] = kw, recall_at_k(ids, gt, 10)
+    assert (ids >= 0).all() and np.array_equal(
+        d, grade.true.astype(np.float32)), \
+        "hamming distances must be the exact popcounts"
+    out["qps"], out["qps_windows"] = qps_windows(
+        lambda s: gidx.search(qbits[s:s + CHUNK], k=10, **kw)[1], NQ, 5)
+    print(f"binary graph hamming at {json.dumps(kw)}: tie-aware recall@10 "
+          f"{out['tie_recall']:.4f}, id recall@10 {out['id_recall']:.4f}, "
+          f"exact integer distances, QPS {out['qps']:.1f} (median of 5 "
+          f"windows through BinaryHnswIndex.search) [{card}]", flush=True)
+    del gidx
+    nj = JACCARD_GRAPH_N
+    jg = BinaryHnswIndex(BIN_DIM, "jaccard", device=dev).build(bits_dev[:nj])
+    jgt_d, jgt = BinaryFlatIndex(xp[:nj], metric="jaccard",
+                                 device=dev).search(qp[:CHUNK], k=10)
+    # the cosine beam runs to convergence: rerank_k candidates need a full
+    # pool, which the ladder's few-step points do not fill
+    d, ids = jg.search(qbits[:CHUNK], k=10, rerank_k=100,
+                       **{**kw, "max_steps": 0})
+    rows = xp[torch.from_numpy(ids.astype(np.int64)).to(dev)]
+    true = BO.jaccard_distance(qp[:CHUNK, None, :].expand_as(rows),
+                               rows).cpu().numpy()
+    assert (ids >= 0).all() and np.array_equal(d, true), \
+        "jaccard distances must be exact"
+    out["jaccard_rows"] = nj
+    out["jaccard_tie_recall"] = float((true <= jgt_d[:, 9:10]).mean())
+    out["jaccard_id_recall"] = recall_at_k(ids, jgt, 10)
+    print(f"binary graph jaccard over {nj} rows, rerank_k 100, {CHUNK} "
+          f"queries: tie-aware recall@10 {out['jaccard_tie_recall']:.4f}, "
+          f"id recall@10 {out['jaccard_id_recall']:.4f}, exact distances "
+          f"[{card}]", flush=True)
     return out
 
 
@@ -1051,6 +1355,9 @@ def binary_phase(card: str, dev: torch.device) -> dict:
         lambda: hidx.search(chunk_bits, k=10, probes=chosen), card,
         f"binary hamming path, one {CHUNK}-query BinaryHnswIndex.search "
         "chunk")
+    del hidx, jidx
+    torch.cuda.empty_cache()
+    out["graph"] = binary_graph(bits_dev, qbits, qp, xp, gt_d, gt, card, dev)
     return {"numbers": out, "hamming": ham, "topk": topk, "library": lib,
             "expand_d1536": wide, "topr_d1536": topr, "timings": timings,
             "breakdown": breakdown}
@@ -1070,7 +1377,7 @@ def main() -> None:
 
     # count only the block path's launches
     X.LAUNCHES = X.TOPR_LAUNCHES = H.LAUNCHES = 0
-    numbers, idx = main_path(base, queries, card, dev)
+    numbers, idx, gt = main_path(base, queries, card, dev)
     launches = expand_launches()
     assert launches["expand_topr"] > 0, \
         "the block path never launched expand_topr"
@@ -1088,7 +1395,20 @@ def main() -> None:
         "filter/lifecycle never launched expand_topr"
     assert life_launches["expand_score"] > 0, \
         "search_iterative never widened past the fused limit"
-    del idx, base, queries, qchunk
+    del idx, qchunk
+    torch.cuda.empty_cache()
+
+    # the graph engine on the same data and ground truth
+    graph, gidx, gkw, gbreak = graph_phase(base, queries, gt, card, dev)
+    breakdowns.append(gbreak)
+    X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    routed = block_graph_routed(base, queries, gt, card, dev)
+    routed_launches = expand_launches()
+    assert routed_launches["expand_topr"] > 0, \
+        "the graph-routed block path never launched expand_topr"
+    graph["block_graph_routed"] = routed
+    graph["lifecycle"] = graph_lifecycle(gidx, base, queries, gkw, card, dev)
+    del gidx, base, queries
     torch.cuda.empty_cache()
 
     binary = binary_phase(card, dev)
@@ -1101,8 +1421,8 @@ def main() -> None:
                 and v["metric"] == "l2" and v["p"] == 8 and v["d"] == DIM
                 and not v["masked"])
     print(json.dumps({"main_path": numbers, "lifecycle": life,
-                      "binary": binary["numbers"], "nvcc_s": builds,
-                      "card": card}), flush=True)
+                      "graph": graph, "binary": binary["numbers"],
+                      "nvcc_s": builds, "card": card}), flush=True)
     topk = binary["topk"]
     fused = next(v for v in topk if v["metric"] == "hamming"
                  and v["k"] == 10 and v["Q"] == KERNEL_Q
@@ -1112,6 +1432,7 @@ def main() -> None:
     launches_bin = binary["numbers"]["launches"]
     by_path = {name: {"block_1Mx128": launches[name],
                       "block_lifecycle": life_launches[name],
+                      "block_graph_routed_1Mx128": routed_launches[name],
                       "binary_1Mx1536": launches_bin[name]}
                for name in ("expand_score", "expand_topr")}
     print(json.dumps({"stage1_timings": timings,

@@ -199,8 +199,13 @@ def test_save_load_roundtrip_and_stats(data, tmp_path):
 
 
 def test_graph_engine_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        BinaryHnswIndex(NBITS, device="cpu")  # the reference's default engine
+    """The reference's default engine, the graph, once raised and now
+    constructs on HnswIndex; an unknown engine still raises."""
+    from tpu_hnsw_torch import HnswIndex
+
+    idx = BinaryHnswIndex(NBITS, device="cpu")
+    assert idx.engine == "graph" and isinstance(idx.inner, HnswIndex)
+    assert idx.inner.cfg.dtype == "bfloat16" and idx.inner.cfg.dim == NBITS
     with pytest.raises(ValueError, match="engine"):
         BinaryHnswIndex(NBITS, engine="ivf", device="cpu")
 

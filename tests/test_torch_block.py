@@ -174,25 +174,39 @@ def test_ip_metric():
 
 
 def test_later_slices_raise_not_implemented(tmp_path):
-    """Graph routing (ROADMAP slice 2) is the part of the engine still
-    unported: asking for it, needing it, or loading a saved centroid graph
-    raises NotImplementedError naming the slice."""
+    """Graph routing, once a later slice that raised, now works: asking for
+    it, or needing it ("auto" above EXACT_ROUTING_MAX blocks), builds a
+    centroid HnswIndex that routes the search; "exact" still scans every
+    centroid at any block count; a saved centroid_graph/ loads back and
+    serves the same ids."""
+    from tpu_hnsw_torch import HnswIndex
+
     base, q = _data(n=1024)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        BlockHnswIndex(CFG, routing="graph", device="cpu")
-    # "auto" needs graph routing above EXACT_ROUTING_MAX blocks; "exact"
-    # scans every centroid at any block count
+    gt = FlatIndex(base, Metric.L2, device="cpu").search(q, k=10,
+                                                        exact=True)[1]
+    graph = BlockHnswIndex(CFG, routing="graph", block_size=64,
+                           device="cpu").build(base)
+    assert isinstance(graph.centroid_index, HnswIndex)
+    assert graph.centroid_index.n == graph.n_blocks == 17
+    assert graph.stats()["routing"] == "graph"
+    # "auto" needs graph routing above EXACT_ROUTING_MAX blocks
     auto = BlockHnswIndex(CFG, block_size=64, device="cpu")
     auto.EXACT_ROUTING_MAX = 8
-    with pytest.raises(NotImplementedError, match="graph routing"):
-        auto.build(base)
+    assert auto.build(base).stats()["routing"] == "graph"
+    assert auto.centroid_index is not None
     exact = BlockHnswIndex(CFG, block_size=64, routing="exact", device="cpu")
     exact.EXACT_ROUTING_MAX = 8
     assert exact.build(base).n_blocks == 17
-    exact.save(str(tmp_path / "x"))
-    (tmp_path / "x" / "centroid_graph").mkdir()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        BlockHnswIndex.load(str(tmp_path / "x"), device="cpu")
+    assert exact.centroid_index is None and "centroid_graph" not in \
+        exact.stats()["memory_bytes"]
+    d, ids = graph.search(q, k=10, probes=graph.n_blocks)
+    assert recall_at_k(ids, gt, 10) == 1.0
+    _, ids = graph.search(q, k=10, probes=6)
+    graph.save(str(tmp_path / "x"))
+    assert (tmp_path / "x" / "centroid_graph" / "meta.json").exists()
+    back = BlockHnswIndex.load(str(tmp_path / "x"), device="cpu")
+    assert back.centroid_index.n == 17
+    np.testing.assert_array_equal(back.search(q, k=10, probes=6)[1], ids)
 
 
 def test_block_index_defaults_to_the_card(tmp_path, monkeypatch):

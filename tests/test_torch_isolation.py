@@ -1,5 +1,6 @@
-"""tpu_hnsw_torch stands alone: importing it and running a build and a
-search loads neither JAX nor tpu_hnsw."""
+"""tpu_hnsw_torch stands alone: importing it and running builds and
+searches (block, binary and graph engines) loads neither JAX nor
+tpu_hnsw."""
 
 import os
 import subprocess
@@ -12,7 +13,7 @@ import sys
 import torch
 torch.set_num_threads(1)
 from tpu_hnsw_torch import (BinaryFlatIndex, BinaryHnswIndex, BlockHnswIndex,
-                            FlatIndex, HnswConfig, Metric)
+                            FlatIndex, HnswConfig, HnswIndex, Metric)
 from tpu_hnsw_torch.ops.bitops import pack_bits
 from tpu_hnsw_torch.ops.vector_ops import binary_quantize
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
@@ -30,6 +31,14 @@ d, ids = bidx.search(bits[:8], k=5, probes=bidx.inner.n_blocks)
 flat = BinaryFlatIndex.from_bits(bits, device="cpu")
 gd, _ = flat.search(pack_bits(bits[:8]), k=5)
 assert (d == gd).all()
+g = HnswIndex(HnswConfig(dim=16, m=8, ef_construction=32, wave_size=64),
+              device="cpu").build(base[:400])
+_, ids = g.search(q, k=5, ef_search=64)
+assert recall_at_k(ids, FlatIndex(base[:400], Metric.L2, device="cpu").search(
+    q, k=5, exact=True)[1], 5) >= 0.9
+bg = BinaryHnswIndex(16, device="cpu").build(bits[:300])
+d, _ = bg.search(bits[:8], k=5)
+assert (d[:, 0] == 0).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tpu_hnsw"))
 print("LOADED", bad)

@@ -101,3 +101,22 @@ def test_topk_by_index_matches_lax_top_k_on_signed_ties(k):
     v, i = T.topk_smallest_by_index(torch.from_numpy(d), k)
     np.testing.assert_array_equal(v.numpy(), -np.asarray(jv))
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("width", [50, 1500])
+def test_topk_by_index_sort_and_keyed_paths_agree(width, monkeypatch):
+    """Narrow rows take one stable sort, wide rows the keyed top-k: on
+    tie-heavy rows with -0.0, +0.0 and +inf both give the same indices and
+    values (equal values to the lower index, -0.0 equal to +0.0)."""
+    rng = np.random.default_rng(width)
+    d = rng.choice([-1.0, -0.0, 0.0, 0.5, np.inf], size=(8, width)).astype(
+        np.float32)
+    k = 40
+    v, i = T.topk_smallest_by_index(torch.from_numpy(d), k)
+    monkeypatch.setattr(T, "STABLE_SORT_MAX",
+                        0 if width <= T.STABLE_SORT_MAX else 1 << 20)
+    v2, i2 = T.topk_smallest_by_index(torch.from_numpy(d), k)
+    assert torch.equal(i, i2) and torch.equal(v, v2)
+    # numpy's stable argsort: the (value, index) order
+    want = np.argsort(np.where(d == 0, 0.0, d), axis=1, kind="stable")
+    np.testing.assert_array_equal(i.numpy(), want[:, :k])

@@ -20,7 +20,8 @@ from tpu_hnsw_torch.config import HnswConfig, Metric  # noqa: E402
 from tpu_hnsw_torch.index.binary import BinaryHnswIndex  # noqa: E402
 from tpu_hnsw_torch.index.block import BlockHnswIndex  # noqa: E402
 from tpu_hnsw_torch.index.flat import FlatIndex  # noqa: E402
+from tpu_hnsw_torch.index.hnsw import HnswIndex  # noqa: E402
 from tpu_hnsw_torch.ops.bitops import BinaryFlatIndex  # noqa: E402
 
 __all__ = ["BinaryFlatIndex", "BinaryHnswIndex", "BlockHnswIndex",
-           "FlatIndex", "HnswConfig", "Metric"]
+           "FlatIndex", "HnswConfig", "HnswIndex", "Metric"]

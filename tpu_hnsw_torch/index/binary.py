@@ -2,18 +2,18 @@
 ``tpu_hnsw/index/binary.py``).
 
 pgvector indexes the ``bit`` type through the ``bit_hamming_ops`` /
-``bit_jaccard_ops`` operator classes. As in the reference, bits ride the
-dense block engine as 0/1 bf16 lanes:
+``bit_jaccard_ops`` operator classes. As in the reference, bits ride a
+dense engine as 0/1 bf16 lanes: the graph engine (``engine="graph"``, the
+default: :class:`~tpu_hnsw_torch.index.hnsw.HnswIndex`) or the block engine
+(``engine="block"``).
 
 - **Hamming** over bits is squared L2 over their 0/1 encodings, so the
-  L2 block engine (int8 stage 1 in the ``expand_score`` kernel, exact f32
-  rerank) returns exact integer counts while the f32 sums stay below 2^24.
+  L2 engines (the graph's exact f32 scores; the block engine's int8 stage
+  1 in the ``expand_score`` kernel and exact f32 rerank) return exact
+  integer counts while the f32 sums stay below 2^24.
 - **Jaccard** has no dense-metric equivalent: the cosine engine over the
   same encoding proposes ``rerank_k`` candidates and an exact packed
   AND/OR popcount rerank orders them.
-
-Only the block engine is ported; ``engine="graph"`` (the reference's
-default) raises ``NotImplementedError`` until the graph engine is.
 """
 
 from __future__ import annotations
@@ -26,10 +26,9 @@ import torch
 
 from tpu_hnsw_torch.config import HnswConfig, Metric
 from tpu_hnsw_torch.index.block import BlockHnswIndex
+from tpu_hnsw_torch.index.hnsw import HnswIndex
 from tpu_hnsw_torch.ops import bitops
 from tpu_hnsw_torch.ops import topk as T
-
-_GRAPH_SLICE = "ROADMAP queue 1, slice 2 (graph engine)"
 
 
 def unpack_bits(packed: np.ndarray, nbits: int) -> np.ndarray:
@@ -46,7 +45,8 @@ def unpack_bits(packed: np.ndarray, nbits: int) -> np.ndarray:
 class BinaryHnswIndex:
     """ANN over binary vectors (``bit_hamming_ops`` / ``bit_jaccard_ops``).
 
-    Parameters mirror the reference's; ``device`` holds the index. Inputs
+    Parameters mirror the reference's; ``engine`` picks the graph
+    (``"graph"``) or the block engine; ``device`` holds the index. Inputs
     to :meth:`build` / :meth:`add` / :meth:`search` are bit arrays
     ``[N, nbits]`` of {0,1} (any int dtype or bool; :meth:`build` also
     takes a tensor), or packed 32-bit lanes with ``packed=True``.
@@ -60,8 +60,6 @@ class BinaryHnswIndex:
             raise ValueError("metric must be hamming or jaccard")
         if engine not in ("graph", "block"):
             raise ValueError("engine must be graph or block")
-        if engine == "graph":
-            raise NotImplementedError(f"engine='graph': {_GRAPH_SLICE}")
         self.nbits = int(nbits)
         self.metric = metric
         self.engine = engine
@@ -71,8 +69,11 @@ class BinaryHnswIndex:
             m=m, ef_construction=ef_construction,
             dtype="bfloat16",  # 0/1 is exact in bf16
             seed=seed, max_elements=max_elements)
-        self.inner = BlockHnswIndex(self.cfg, block_size=block_size,
-                                    device=device)
+        if engine == "graph":
+            self.inner = HnswIndex(self.cfg, device=device)
+        else:
+            self.inner = BlockHnswIndex(self.cfg, block_size=block_size,
+                                        device=device)
         # packed rows in id order (int32 words), for the exact jaccard rerank
         self._packed: torch.Tensor | None = None
 
@@ -142,7 +143,8 @@ class BinaryHnswIndex:
         os.makedirs(path, exist_ok=True)
         self.inner.save(os.path.join(path, "inner"))
         meta = {"nbits": self.nbits, "metric": self.metric,
-                "engine": self.engine, "block_size": self.inner.block_size}
+                "engine": self.engine,
+                "block_size": getattr(self.inner, "block_size", 0)}
         with open(os.path.join(path, "binary_meta.json"), "w") as f:
             json.dump(meta, f)
         if self._packed is not None:
@@ -153,12 +155,10 @@ class BinaryHnswIndex:
     def load(cls, path: str, device=None) -> "BinaryHnswIndex":
         with open(os.path.join(path, "binary_meta.json")) as f:
             meta = json.load(f)
-        if meta["engine"] != "block":
-            raise NotImplementedError(f"engine='graph': {_GRAPH_SLICE}")
-        idx = cls(meta["nbits"], meta["metric"], engine="block",
-                  block_size=meta["block_size"], device=device)
-        idx.inner = BlockHnswIndex.load(os.path.join(path, "inner"),
-                                        device=device)
+        idx = cls(meta["nbits"], meta["metric"], engine=meta["engine"],
+                  block_size=meta["block_size"] or 256, device=device)
+        engine = HnswIndex if meta["engine"] == "graph" else BlockHnswIndex
+        idx.inner = engine.load(os.path.join(path, "inner"), device=device)
         idx.cfg = idx.inner.cfg
         pk = os.path.join(path, "packed.npz")
         if os.path.exists(pk):
@@ -195,7 +195,9 @@ class BinaryHnswIndex:
                rerank_k: int = 0, **kw):
         """Top-k by exact hamming / exact jaccard distance.
 
-        ``kw`` passes engine knobs through (``probes``, ``ef_search``).
+        ``kw`` passes engine knobs through (``ef_search``, ``descent_ef``,
+        ``expand`` for the graph engine; ``probes``, ``ef_search`` for the
+        block engine).
         For jaccard, ``rerank_k`` (default ``max(4k, 50)``) is the cosine
         candidate pool that the exact popcount rerank re-orders.
 
@@ -212,14 +214,22 @@ class BinaryHnswIndex:
         # them to f32 there
         q = torch.from_numpy(np.ascontiguousarray(qbits)).to(
             self.inner.device)
+        graph = self.engine == "graph"
         if self.metric == "hamming":
+            if graph:
+                kw.setdefault("ef_search", max(40, k))
             d, ids = self.inner.search(q, k=k, **kw)
             # the engine took sqrt of the squared L2 (= hamming)
             return np.where(np.isfinite(d), np.rint(np.square(d)),
                             np.inf), ids
         cand = int(rerank_k) if rerank_k else max(4 * k, 50)
         cand = min(cand, max(self.inner.n, k))
+        if graph:
+            cand = min(cand, 1000)  # the ef_search range (config.py)
+            kw["ef_search"] = max(kw.get("ef_search", 40), cand)
         _, cids = self.inner.search_device(q, k=cand, **kw)
+        if graph:  # the graph marks a missing result with its sentinel
+            cids = torch.where(cids == self.inner.graph.sentinel, -1, cids)
         qp = bitops.pack_bits(q)
         rows = self._packed[torch.clamp_min(cids, 0).long()]   # [Q, C, W]
         inter = bitops.popcount(qp[:, None, :] & rows).sum(
@@ -228,6 +238,7 @@ class BinaryHnswIndex:
             -1, dtype=torch.int32)
         jd = 1.0 - inter.float() / torch.clamp_min(union, 1).float()
         jd = torch.where(cids < 0, torch.inf, jd)
-        vals, pos = T.topk_smallest(jd, k)
+        # lax.top_k's order (binary.py:256): ties to the earlier candidate
+        vals, pos = T.topk_smallest_by_index(jd, k)
         ids = torch.where(torch.isfinite(vals), torch.gather(cids, 1, pos), -1)
         return vals.cpu().numpy(), ids.cpu().numpy()

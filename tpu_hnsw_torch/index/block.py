@@ -1,5 +1,5 @@
 """BlockHnswIndex — cluster-blocked level 0 (port of
-``tpu_hnsw/index/block.py``: exact centroid routing, build and serve).
+``tpu_hnsw/index/block.py``: exact or graph routing, build and serve).
 
 Vectors are k-means clustered and packed into ``[B, S, d]`` blocks of S
 spatially close rows. A query scores the B block centroids (one ``[Q, B]``
@@ -11,15 +11,15 @@ with per-block scales by default, or bf16) by the expand kernel
 blocks and the top-k returned.
 ``two_stage=False`` scores the stored blocks directly.
 
+Above ``EXACT_ROUTING_MAX`` blocks (or with ``routing="graph"``) a query
+finds its blocks through an :class:`~tpu_hnsw_torch.index.hnsw.HnswIndex`
+over the block centroids instead of scanning them all.
+
 Deletes tombstone rows in place; inserts go to a flat-scanned spill tail
 and are folded into blocks by ``compact()``. A filter mask over element
 ids is applied on the device, in the kernel, like a dead row. ``save`` /
 ``load`` use the reference's on-disk layout, so an index saved by either
 package loads in the other.
-
-Not ported yet: graph routing over the centroid HNSW (B >
-EXACT_ROUTING_MAX; ROADMAP queue 1, slice 2), which raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from tpu_hnsw_torch.config import HnswConfig, Metric, validate_ef_search
 from tpu_hnsw_torch.index import flat as FL
+from tpu_hnsw_torch.index.hnsw import HnswIndex, _tensor
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import expand as X
 from tpu_hnsw_torch.ops import topk as T
@@ -44,7 +45,6 @@ from tpu_hnsw_torch.utils.device import entry_device
 
 #: the kernel loads 16 bytes at a time; scoring-copy rows are padded to it
 ROW_ALIGN_BYTES = 16
-_GRAPH_SLICE = "ROADMAP queue 1, slice 2 (graph engine)"
 # elements of a corpus-sized f32 temporary per step of the install-time
 # passes (norms, centroid sums, normalisation): 2^28 f32 is 1 GB
 _CHUNK_ELEMS = 1 << 28
@@ -429,21 +429,14 @@ def _write_blob(path: str, arr: np.ndarray) -> None:
                       f"of {arr.nbytes} bytes")
 
 
-def _tensor(a, device) -> torch.Tensor:
-    """numpy array (including ml_dtypes bfloat16) -> tensor on ``device``."""
-    a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
-
-
 class BlockHnswIndex:
-    """HNSW index with cluster-blocked level 0, exact centroid routing.
+    """HNSW index with cluster-blocked level 0.
 
-    ``block_size`` is the level-0 granularity S. ``routing``: "exact"
-    scans all centroids at any block count; "auto" does so while
-    B <= EXACT_ROUTING_MAX and would switch to graph routing above it,
-    which is not ported ("graph" likewise). ``device`` holds every
+    ``block_size`` is the level-0 granularity S; ``config.m`` and
+    ``ef_construction`` shape the centroid graph. ``routing``: "exact"
+    scans all centroids at any block count, "graph" walks an HNSW graph
+    over them, "auto" scans while B <= EXACT_ROUTING_MAX and walks the
+    graph above it. ``device`` holds every
     tensor of the index: the card unless the caller names another
     (``"cpu"`` runs the kernel's plain version). Attributes
     ``two_stage`` (scoring copy + exact rerank), ``rerank_width`` (rows per
@@ -463,8 +456,6 @@ class BlockHnswIndex:
                  device=None):
         if routing not in ("auto", "exact", "graph"):
             raise ValueError("routing must be auto|exact|graph")
-        if routing == "graph":
-            raise NotImplementedError(f"graph routing: {_GRAPH_SLICE}")
         if config.metric not in (Metric.L2, Metric.IP, Metric.COSINE):
             raise ValueError(f"{config.metric} unsupported by BlockHnswIndex")
         self.cfg = config
@@ -487,7 +478,9 @@ class BlockHnswIndex:
         self.score_scale = None   # [B] f32 per-block dequant (int8 copy)
         self.centroids = None     # [B, d] storage dtype
         self.centroids_sq = None  # [B] f32
+        self.centroid_index: HnswIndex | None = None
         self.build_stats = {}
+        self._install_stats = {}
         # host id -> flat slot (block*S + s), -2 in the tail, -1 deleted;
         # made lazily (_ensure_slot): only delete/add/save need it
         self._slot_of = None
@@ -533,6 +526,13 @@ class BlockHnswIndex:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
+
+    def _use_graph_routing(self) -> bool:
+        if self.routing == "graph":
+            return True
+        if self.routing == "exact":
+            return False
+        return self.n_blocks > self.EXACT_ROUTING_MAX
 
     def probes_for_ef(self, ef_search: int) -> int:
         """Map the ef_search GUC onto a block-probe count: ``ROWS_PER_EF``
@@ -583,6 +583,7 @@ class BlockHnswIndex:
             "cluster_pack_s": round(t2 - t1, 3),
             "install_s": round(t3 - t2, 3),
             **self._pack_stats,
+            **self._install_stats,
             "device_resident_input": device_input,
             "total_s": round(t3 - t0, 3),
             "vectors_per_sec": round(n / max(t3 - t0, 1e-9), 1),
@@ -595,9 +596,6 @@ class BlockHnswIndex:
         n = xt.shape[0]
         S = self.block_size
         B = max(1, math.ceil(n * self.block_slack / S))
-        if self.routing == "auto" and B > self.EXACT_ROUTING_MAX:
-            raise NotImplementedError(
-                f"{B} blocks need graph routing: {_GRAPH_SLICE}")
         tk = time.perf_counter()
         if B == 1:
             assign = torch.zeros(n, dtype=torch.int64, device=xt.device)
@@ -631,6 +629,9 @@ class BlockHnswIndex:
         self.n_total = self.n
         self._slot_of = None
         self._reset_tail()
+        self._install_stats = {}
+        if self._use_graph_routing():
+            self._ensure_centroid_graph()
 
     def _set_blocks(self, blocks: torch.Tensor, block_ids: torch.Tensor):
         """Install blocks and derive norms, scoring copy and centroids (the
@@ -647,6 +648,48 @@ class BlockHnswIndex:
         self.centroids_sq = (cents * cents).sum(-1)
         self.n_blocks = int(blocks.shape[0])
         self._filter_cache = None
+        self.centroid_index = None  # made again for these centroids
+
+    def _ensure_centroid_graph(self) -> HnswIndex:
+        """The HNSW graph over the block centroids, built once (block.py:
+        1090-1122) with the index's config, over the raw centroids: a
+        centroid of normalised rows is not unit-norm, so a cosine index's
+        graph takes inner product, which keeps the order routing needs.
+
+        Its waves hold at most B/32 centroids. The reference gives them the
+        element config's ``wave_size`` (1024): over a few thousand
+        centroids a wave is a quarter of the graph it joins, and the wave
+        staleness leaves islands no search reaches (4,102 centroids of the
+        1M x 128 cell: recall@10 stops at 0.86 even at 128 probes). From
+        ``BULK_THRESHOLD`` centroids the graph is bulk-built and the wave
+        size plays no part."""
+        if self.centroid_index is not None:
+            return self.centroid_index
+        ccfg = HnswConfig(
+            dim=self.cfg.dim,
+            metric=(Metric.IP if self.cfg.metric is Metric.COSINE
+                    else self.cfg.metric),
+            m=self.cfg.m, ef_construction=self.cfg.ef_construction,
+            dtype=self.cfg.dtype,
+            wave_size=max(1, min(self.cfg.wave_size, self.n_blocks // 32)),
+            descent_ef=self.cfg.descent_ef, seed=self.cfg.seed)
+        t0 = time.perf_counter()
+        self.centroid_index = HnswIndex(ccfg, capacity=self.n_blocks,
+                                        device=self.device)
+        self.centroid_index.build(
+            self.centroids[: self.n_blocks].float().cpu().numpy())
+        self._install_stats = {
+            "centroid_graph_s": round(time.perf_counter() - t0, 3)}
+        return self.centroid_index
+
+    def _route(self, qt, probes: int, ef_route: int):
+        """Each query's ``probes`` blocks through the centroid graph's beam
+        (block.py:1133-1144); a missing result repeats block 0, whose
+        duplicate rows lose the top-k ties."""
+        ci = self._ensure_centroid_graph()
+        _, bids = ci.search_device(qt, k=probes,
+                                   ef_search=min(max(ef_route, probes), 1000))
+        return torch.where(bids == ci.graph.sentinel, 0, bids)
 
     @classmethod
     def from_state(cls, cfg: HnswConfig, state: dict, block_size: int = 256,
@@ -764,13 +807,26 @@ class BlockHnswIndex:
         if (probes >= self.n_blocks
                 and self.n_blocks > self.EXHAUSTIVE_SCAN_MIN_BLOCKS):
             sc, ids = self._scan_all(qt, k, allowed_slots)
-        else:
+        elif not self._use_graph_routing():
             sc, ids = _serve_exact(
                 self.blocks, self.blocks_score, self.blocks_sq,
                 self.block_ids, self.centroids, self.centroids_sq, qt,
                 self.score_scale, allowed_slots, k=k, probes=probes,
                 rerank=max(self.rerank_width, k), metric=metric,
                 two_stage=self.two_stage)
+        else:
+            q_sq = D.squared_norms(qt)
+            bids = self._route(qt, probes, max(ef_search, probes))
+            if self.two_stage:
+                sc, ids = _expand_blocks_2stage(
+                    self.blocks_score, self.blocks_sq, self.block_ids,
+                    self.blocks.reshape(-1, self.cfg.dim), qt, q_sq, bids,
+                    k=k, rerank=max(self.rerank_width, k), metric=metric,
+                    score_scale=self.score_scale, allowed=allowed_slots)
+            else:
+                sc, ids = _expand_blocks(
+                    self.blocks, self.blocks_sq, self.block_ids, qt, q_sq,
+                    bids, k=k, metric=metric, allowed=allowed_slots)
         if self.tail_n:
             t_sc, t_ids = self._tail_scores(qt, D.squared_norms(qt), k,
                                             allowed_tail)
@@ -821,7 +877,8 @@ class BlockHnswIndex:
                          predicate=None, max_probes: int = 0):
         """Iterative scan (upstream ``hnsw.iterative_scan``; block.py:
         1338-1459): when a filter rejects results, widen the probe set. The
-        fully sorted centroid ranking is prefix-consistent, so an
+        fully sorted centroid ranking (exact, whatever the routing) is
+        prefix-consistent, so an
         unfiltered round expands only the blocks ranked ``[p_prev, p)`` and
         accumulates (a resume). A filtered round re-expands the whole
         prefix ``[0, p)`` at a doubled retained width W, rescans the spill
@@ -1036,7 +1093,9 @@ class BlockHnswIndex:
         ``blocks.bin`` (bf16 as uint16), ``blocks.npz`` (block_ids,
         slot_of), ``meta.json`` and, with a spill tail, ``tail.npz``.
         ``meta.json`` also holds ``block_slack`` and ``score_dtype``, which
-        the reference does not persist (and ignores when it loads)."""
+        the reference does not persist (and ignores when it loads). A built
+        centroid graph goes to ``centroid_graph/`` in
+        :meth:`HnswIndex.save`'s layout."""
         os.makedirs(path, exist_ok=True)
         self._ensure_slot()
         S, d = self.block_size, self.cfg.dim
@@ -1066,6 +1125,8 @@ class BlockHnswIndex:
         }
         with open(os.path.join(path, "meta.json"), "w") as f:
             json.dump(meta, f)
+        if self.centroid_index is not None:  # built lazily; may not exist
+            self.centroid_index.save(os.path.join(path, "centroid_graph"))
         if self.tail_n:
             np.savez(os.path.join(path, "tail.npz"),
                      tail=self.tail.float().cpu().numpy(),
@@ -1076,13 +1137,11 @@ class BlockHnswIndex:
     def load(cls, path: str, device=None) -> "BlockHnswIndex":
         """Read a directory written by :meth:`save` or by ``tpu_hnsw``
         (block.py:1661-1706): norms, scoring copy and centroids are derived
-        again from the blocks. ``block_slack`` defaults to 1.05 where the
-        directory does not hold it."""
+        again from the blocks, and a saved ``centroid_graph/`` is loaded.
+        ``block_slack`` defaults to 1.05 where the directory does not hold
+        it."""
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
-        if os.path.exists(os.path.join(path, "centroid_graph")):
-            raise NotImplementedError(
-                f"loading a centroid graph: {_GRAPH_SLICE}")
         c = dict(meta["config"])
         c["metric"] = Metric(c["metric"])
         idx = cls(HnswConfig(**c), block_size=meta["block_size"],
@@ -1104,6 +1163,9 @@ class BlockHnswIndex:
         if blocks.shape[0]:
             idx._set_blocks(blocks, _tensor(z["block_ids"], idx.device))
         idx._slot_of = z["slot_of"]
+        cg = os.path.join(path, "centroid_graph")
+        if os.path.exists(cg):
+            idx.centroid_index = HnswIndex.load(cg, device=idx.device)
         idx.n = meta["n"]
         idx.n_total = meta["n_total"]
         tp = os.path.join(path, "tail.npz")
@@ -1125,6 +1187,9 @@ class BlockHnswIndex:
             if a is not None and not (name == "blocks_score"
                                       and a is self.blocks):
                 comp[name] = a.numel() * a.element_size()
+        if self.centroid_index is not None:
+            comp["centroid_graph"] = self.centroid_index.stats()[
+                "memory_total_bytes"]
         total = sum(comp.values())
         return {
             "n": self.n,
@@ -1134,7 +1199,7 @@ class BlockHnswIndex:
             "dim": self.cfg.dim,
             "dtype": self.cfg.dtype,
             "score_dtype": self.score_dtype,
-            "routing": "exact",
+            "routing": "graph" if self._use_graph_routing() else "exact",
             "device": str(self.device),
             "memory_bytes": comp,
             "memory_total_bytes": total,

@@ -4,6 +4,10 @@ from __future__ import annotations
 
 import torch
 
+#: widest row that topk_smallest_by_index sorts whole (one launch, where the
+#: keyed top-k takes a dozen: the graph engine's pools and merges)
+STABLE_SORT_MAX = 1024
+
 
 def topk_smallest(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Smallest-k along the last axis, ascending. Returns (values, indices)."""
@@ -44,8 +48,36 @@ def topk_smallest_by_index(d: torch.Tensor, k: int
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Smallest-k of f32 ``d`` along the last axis, ascending by (value,
     index): ``lax.top_k(-d, k)``'s order, ties to the lower index. Returns
-    (values f32, indices int64)."""
+    (values f32, indices int64). Rows up to ``STABLE_SORT_MAX`` wide take
+    one stable sort (equal values keep their index order, -0.0 equal to
+    +0.0); wider rows a top-k of int64 keys."""
+    if d.shape[-1] <= STABLE_SORT_MAX:
+        vals, idx = torch.sort(d, dim=-1, stable=True)
+        return vals[..., :k], idx[..., :k]
     idx = torch.arange(d.shape[-1], dtype=torch.int64, device=d.device)
     kk = torch.topk(score_keys(d, idx), k, dim=-1, largest=False,
                     sorted=True)
     return decode_score_keys(kk.values)
+
+
+def merge_pools(dists_a, ids_a, flags_a, dists_b, ids_b, flags_b, k: int):
+    """Merge two (dist, id, flag) pools along the last axis and keep the best
+    k (topk.py:42-64), in :func:`topk_smallest_by_index`'s order: among equal
+    distances the earlier entry, so a pool keeps what it held. Entries with
+    dist +inf are padding."""
+    d = torch.cat([dists_a, dists_b], dim=-1)
+    vals, sel = topk_smallest_by_index(d, k)
+    return (vals, torch.gather(torch.cat([ids_a, ids_b], dim=-1), -1, sel),
+            torch.gather(torch.cat([flags_a, flags_b], dim=-1), -1, sel))
+
+
+def lexsort_order(t: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Positions that sort 1-D ``t`` (ints in [0, 2^31)) ascending, then f32
+    ``d``, then position: ``jnp.lexsort((d, t))``. One stable sort of the
+    int64 key ``t << 32 | ordered bits of d`` (-0.0 taken as +0.0, as the
+    reference's sort does)."""
+    sc = torch.where(d == 0, 0.0, d).contiguous()
+    b = sc.view(torch.int32)
+    b = b ^ ((b >> 31) & 0x7FFFFFFF)
+    key = t.to(torch.int64) * (1 << 32) + (b.to(torch.int64) + (1 << 31))
+    return torch.sort(key, stable=True).indices
