@@ -23,11 +23,29 @@ plain version):
    recall@10 >= 0.95, then QPS over 1024-query chunks; stage 1 timed at
    the routed bids of the first 1024 queries; a ``torch.profiler``
    breakdown of one 1024-query ``search_device`` chunk (top device ops,
-   device-busy time over the unprofiled host wall time);
+   device-busy time over the unprofiled host wall time); the oracle timed
+   beside the ``torch.topk``-order scan it replaced;
 5. filter and lifecycle on that index: the 10%-selectivity filter of
    bench.py, add, delete, filtered ``search_iterative``, ``compact`` and a
-   ``save``/``load`` round trip;
-6. the binary path at full width: ``binary_quantize`` of
+   ``save``/``load`` round trip; then the graph engine on the same rows
+   (bulk build, bench.py's ladder, QPS, graph-routed ``BlockHnswIndex``,
+   graph add/delete/compact/iterative/save-load);
+6. ``IvfFlatIndex(128, L2, lists=1000)`` on the same rows: build, recall@10
+   and QPS (``utils/evalharness.measure_qps``) at probes 1-32, peak
+   memory, add, delete, filtered ``search_iterative``, save/load; then
+   ``PartitionedHnswIndex`` over them: 8 centroid partitions (route_k 2,
+   5% replicas, block engine) with recall, no duplicate id, DML, compact,
+   a filtered ``search_iterative`` and save/load, and 4 graph-engine hash
+   partitions over 200,000 rows;
+7. config D at full width: ``synthetic_clustered(10_000_000, 96,
+   n_queries=8192, seed=13)`` L2-normalised, 8 hash partitions of
+   ``BlockHnswIndex`` (inner product, block 256), the exact oracle over all
+   rows; ``expand_topr`` at d=96 IP against its plain version; recall@10
+   over the probe grid to the first point >= 0.95, QPS there, 8
+   ``expand_topr`` launches a chunk, a profiled chunk, the host-loop
+   ``search`` against ``search_device`` (equal up to tied distances), peak
+   memory;
+8. the binary path at full width: ``binary_quantize`` of
    ``synthetic_clustered(1_000_000, 1536, n_queries=4096, seed=42)`` (the
    shape of dbpedia-entities-openai-1M, binary-quantized as pgvector's
    README does). Both hamming entries against their plain versions,
@@ -48,13 +66,15 @@ plain version):
    copy (hamming L2, jaccard cosine; masked and not), and stage 1 timed at
    the bids each index's own routing gives the first 1024 queries; a
    ``torch.profiler`` breakdown of one 1024-query hamming search;
-7. print the kernel table as one JSON line (launches per path, times,
-   bounds), the card line, and last ``{"ok": true, "device": {...}}``.
+9. print each phase's seconds, the kernel table as one JSON line (launches
+   per path, times, bounds), the card line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Each path's kernel launch counters are set to 0 just before it and read
 just after it; launches made to compare a kernel with its plain version
-are not counted. Stage 1 of the block, lifecycle and binary paths must
-launch ``expand_topr``; the lifecycle's filtered ``search_iterative``
+are not counted. Stage 1 of the block, lifecycle, graph-routed,
+partitioned (centroid and config D) and binary paths must launch
+``expand_topr``; the lifecycle's filtered ``search_iterative``
 widens past the fused limit and must launch ``expand_score`` too. A
 kernel's ``launches`` in the JSON line sums its paths'. ``bound_ms`` is
 the larger of the bytes a call must move (each input read once, each
@@ -71,12 +91,14 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 from tpu_hnsw_torch import (BinaryFlatIndex, BinaryHnswIndex, BlockHnswIndex,
-                            FlatIndex, HnswConfig, HnswIndex, Metric)
+                            FlatIndex, HnswConfig, HnswIndex, IvfFlatIndex,
+                            Metric, PartitionedHnswIndex)
 from tpu_hnsw_torch.index.block import (_make_score_copy, _pad_cols,
                                         _quantize_rows, _route_exact)
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
@@ -86,6 +108,7 @@ from tpu_hnsw_torch.ops import expand as X
 from tpu_hnsw_torch.ops import hamming as H
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.ops.vector_ops import binary_quantize
+from tpu_hnsw_torch.utils.evalharness import measure_qps
 from tpu_hnsw_torch.utils.recall import recall_at_k
 
 N, DIM, NQ, DATA_SEED = 1_000_000, 128, 4096, 42
@@ -148,6 +171,18 @@ class Sampler:
                 self.summary[name] = {"min": min(vals), "max": max(vals),
                                       "median": float(np.median(vals))}
         return False
+
+
+PHASE_S: dict = {}
+
+
+@contextmanager
+def phase(name: str):
+    """Prints and keeps the seconds a phase of this script takes."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_S[name] = round(time.perf_counter() - t0, 3)
+    print(f"phase {name}: {PHASE_S[name]} s", flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -467,10 +502,9 @@ def expand_launches() -> dict:
             "expand_topr": X.TOPR_LAUNCHES}
 
 
-def routed_timing(idx, q, probes: int, r: int, card: str, what: str):
-    """stage1_timing on the bids the index's own routing gives these
-    queries at ``probes``, on its scoring copy (as _serve_exact calls
-    stage 1)."""
+def routed_args(idx, q, probes: int):
+    """Stage 1's arguments as _serve_exact makes them: the bids the index's
+    own routing gives these queries at ``probes``, on its scoring copy."""
     q = idx._queries(q)
     q_sq = (q * q).sum(1)
     metric = idx.cfg.metric
@@ -481,8 +515,77 @@ def routed_timing(idx, q, probes: int, r: int, card: str, what: str):
     if idx.score_scale is not None:
         q8, q_scl = _quantize_rows(qp)
         kw = dict(q8=q8, q_scale=q_scl, score_scale=idx.score_scale)
-    return stage1_timing((idx.blocks_score, idx.blocks_sq, idx.block_ids,
-                          qp, q_sq, bids, metric), kw, r, card, what)
+    return (idx.blocks_score, idx.blocks_sq, idx.block_ids, qp, q_sq, bids,
+            metric), kw
+
+
+def routed_timing(idx, q, probes: int, r: int, card: str, what: str):
+    """stage1_timing at the index's own routed bids (routed_args)."""
+    args, kw = routed_args(idx, q, probes)
+    return stage1_timing(args, kw, r, card, what)
+
+
+def topk_order_scan(flat, q, k: int):
+    """The oracle as it was before its ties followed lax.top_k: the same
+    tiled f32 scan with torch.topk per tile and per merge, every query at
+    once. Kept only to time the repair against it."""
+    q_sq = (q * q).sum(1)
+    best_d = torch.full((q.shape[0], 0), torch.inf, device=q.device)
+    best_i = torch.full((q.shape[0], 0), -1, dtype=torch.int64,
+                        device=q.device)
+    for off in range(0, flat.n, flat._tile):
+        xb = flat.vectors[off:off + flat._tile]
+        sc = torch.clamp_min(q_sq[:, None] + flat.vectors_sq[None, off:off
+                             + xb.shape[0]] - 2.0 * (q @ xb.T), 0.0)
+        tv, ti = torch.topk(sc, k, largest=False)
+        best_d, sel = torch.topk(torch.cat([best_d, tv], 1),
+                                 min(k, best_d.shape[1] + k), largest=False)
+        best_i = torch.gather(torch.cat([best_i, ti + off], 1), 1, sel)
+    return best_d, best_i
+
+
+def oracle_timing(oracle, qdev, card: str):
+    """Ground truth by FlatIndex.search(exact=True) (keyed top-k, ties to
+    the lower row, 1024-query slices) timed beside the torch.topk-order
+    scan it replaced, in turns (old, new, new, old; host clock around
+    synchronized calls). Returns (ids, numbers); the two agree on every
+    distance to f32 rounding."""
+    def new():
+        out = oracle.search_device(qdev, k=10, exact=True)
+        torch.cuda.synchronize()
+        return out
+
+    def old():
+        out = topk_order_scan(oracle, qdev, 10)
+        torch.cuda.synchronize()
+        return out
+
+    times = {"old": [], "new": []}
+    for name in ("old", "new", "new", "old"):
+        fn = new if name == "new" else old
+        t0 = time.perf_counter()
+        res = fn()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        if name == "new":
+            gt_d, gt = res
+        else:
+            old_d = res[0]
+    # GEMMs of 1024 and 4096 rows may sum in other orders: the f32 bound
+    tol = oracle.dim * float(np.finfo(np.float32).eps) * (
+        oracle.vectors_sq.max() + (qdev * qdev).sum(1).max()).item()
+    assert ((gt_d.double() ** 2 - old_d.double()).abs() <= tol).all(), \
+        "the two scans disagree"
+    rec = {"Q": qdev.shape[0], "N": oracle.n, "d": oracle.dim,
+           "ms": min(times["new"]), "ms_all": times["new"],
+           "torch_topk_order_ms": min(times["old"]),
+           "torch_topk_order_ms_all": times["old"]}
+    print(f"oracle FlatIndex.search(exact=True) at {oracle.n} x "
+          f"{oracle.dim}, {rec['Q']} queries: {rec['ms']:.1f} ms (keyed "
+          f"top-k, lax.top_k's ties) against {rec['torch_topk_order_ms']:.1f}"
+          f" ms for the torch.topk-order scan it replaced; calls "
+          f"{[round(t, 1) for t in times['new']]} / "
+          f"{[round(t, 1) for t in times['old']]} [{card}]", flush=True)
+    return gt.cpu().numpy(), rec
 
 
 def main_path(base: np.ndarray, queries: np.ndarray, card: str,
@@ -504,9 +607,7 @@ def main_path(base: np.ndarray, queries: np.ndarray, card: str,
         out[f"build_{name}_vps"] = st["vectors_per_sec"]
     oracle = FlatIndex(xdev, Metric.L2)
     qdev = torch.from_numpy(queries).to(dev)
-    t0 = time.perf_counter()
-    gt_d, gt = oracle.search(qdev, k=10, exact=True)
-    out["flat_exact_s"] = time.perf_counter() - t0
+    gt, out["oracle"] = oracle_timing(oracle, qdev, card)
     launches_before_search = X.LAUNCHES
     chosen = None
     for p in (p for p in PROBE_GRID if p <= idx.n_blocks):
@@ -1363,55 +1464,428 @@ def binary_phase(card: str, dev: torch.device) -> dict:
             "breakdown": breakdown}
 
 
+IVF_LISTS = N // 1000      # pgvector's README: rows / 1000 up to 1M rows
+IVF_PROBES = (1, 2, 4, 8, 16, 32)
+D_N, D_DIM, D_NQ, D_SEED, D_PARTS = 10_000_000, 96, 8192, 13, 8
+SUB_GRAPH_N = 200_000      # rows of the graph-engine partitioned index
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def ivf_phase(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
+              card: str, dev: torch.device) -> dict:
+    """IvfFlatIndex(128, L2, lists=1000) on the 1M x 128 rows: build, the
+    recall/QPS curve over IVF_PROBES through measure_qps (1024-query
+    chunks), peak memory; then add, delete, a filtered search_iterative
+    and a save/load round trip."""
+    out = {"lists": IVF_LISTS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ivf = IvfFlatIndex(DIM, Metric.L2, lists=IVF_LISTS, device=dev).build(
+        base)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["maxlen"] = int(ivf.ids_by_list.shape[1])
+    print(f"IVF build, lists {IVF_LISTS}: {out['build_s']:.3f} s, lists "
+          f"padded to {out['maxlen']} slots [{card}]", flush=True)
+    curve = []
+    for p in IVF_PROBES:
+        st = {}
+        qps, ids = measure_qps(ivf, queries, 10, 0, repeats=5,
+                               pipeline=NQ // CHUNK, stats_out=st, probes=p)
+        row = {"probes": p, "recall": recall_at_k(ids, gt, 10), "qps": qps,
+               **st}
+        curve.append(row)
+        print(f"IVF probes {p}: recall@10 {row['recall']:.4f}, QPS "
+              f"{qps:.1f} (cv {st['qps_cv']}, min {st['qps_min']}, max "
+              f"{st['qps_max']}) [{card}]", flush=True)
+    assert curve[-1]["recall"] > curve[0]["recall"]
+    out["curve"] = curve
+    out["peak_mem_GB"] = peak_gb()
+    print(f"IVF peak device memory {out['peak_mem_GB']:.2f} GB [{card}]",
+          flush=True)
+    rng = np.random.default_rng(11)
+    extra = (base[rng.integers(0, N, N_ADD)]
+             + rng.normal(0.0, 0.5, size=(N_ADD, DIM))).astype(np.float32)
+    t0 = time.perf_counter()
+    new_ids = ivf.add(extra)
+    out["add_s"] = time.perf_counter() - t0
+    assert (new_ids == np.arange(N, N + N_ADD)).all()
+    _, ids = ivf.search(extra[:256], k=1, probes=1)
+    assert (ids[:, 0] == new_ids[:256]).all(), "an added row is not found"
+    victims = rng.choice(N + N_ADD, N_DELETE, replace=False)
+    t0 = time.perf_counter()
+    ivf.delete(victims)
+    out["delete_s"] = time.perf_counter() - t0
+    assert ivf.n == N + N_ADD - N_DELETE
+    _, ids = ivf.search(queries, k=10, probes=8)
+    assert not np.isin(ids, victims).any(), "a deleted id came back"
+    passes = np.random.default_rng(FILTER_SEED + 2).random(N + N_ADD) \
+        < FILTER_SHARE
+    t0 = time.perf_counter()
+    _, ids = ivf.search_iterative(queries[:CHUNK], k=10, probes=1,
+                                  predicate=lambda i: passes[i])
+    out["iterative_s"] = time.perf_counter() - t0
+    got = ids[ids >= 0]
+    assert passes[got].all() and not np.isin(got, victims).any()
+    out["iterative_filled"] = float((ids >= 0).mean())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ivf.save(tmp)
+        back = IvfFlatIndex.load(tmp, device=dev)
+        out["save_load_s"] = time.perf_counter() - t0
+    d1, i1 = ivf.search(queries, k=10, probes=8)
+    d2, i2 = back.search(queries, k=10, probes=8)
+    assert np.array_equal(i1, i2) and np.array_equal(d1, d2), "save/load"
+    print(f"IVF add {N_ADD} rows {out['add_s']:.3f} s (found), delete "
+          f"{N_DELETE} {out['delete_s']:.3f} s (gone), filtered "
+          f"search_iterative {out['iterative_s']:.3f} s "
+          f"({out['iterative_filled']:.4f} filled, every id passes), "
+          f"save+load {out['save_load_s']:.3f} s: identical ids and "
+          f"distances [{card}]", flush=True)
+    return out
+
+
+def partition_modes(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
+                    card: str, dev: torch.device) -> dict:
+    """PartitionedHnswIndex on the 1M x 128 rows at a smaller depth:
+    centroid routing (route_k 2, 5% multi-assign replicas, block engine):
+    recall and no duplicate id in a row; adds found, deletes gone, compact,
+    a filtered search_iterative, save/load; then the graph engine over 4
+    hash partitions of the first 200,000 rows. Launch counters are reset
+    by the caller."""
+    out = {}
+    cfg = HnswConfig(dim=DIM, m=16, ef_construction=64, seed=0)
+    qdev = torch.from_numpy(queries).to(dev)
+    t0 = time.perf_counter()
+    pidx = PartitionedHnswIndex(cfg, D_PARTS, router="centroid", route_k=2,
+                                multi_assign_frac=0.05, engine="block",
+                                block_size=BLOCK, device=dev).build(base)
+    torch.cuda.synchronize()
+    out["centroid_build_s"] = time.perf_counter() - t0
+    out["replicas"] = int((pidx._replica_part >= 0).sum())
+    out["part_rows"] = [pidx._part_rows(p) for p in range(D_PARTS)]
+
+    def no_dups(ids):
+        for row in ids:
+            live = row[row >= 0]
+            assert len(np.unique(live)) == len(live), "a duplicate id"
+
+    _, ids = pidx.search(queries, k=10, ef_search=40)
+    no_dups(ids)
+    out["centroid_recall"] = recall_at_k(ids, gt, 10)
+    _, dids = pidx.search_device(qdev, k=10, ef_search=40)
+    dids = dids.cpu().numpy()
+    no_dups(dids)
+    out["centroid_all_parts_recall"] = recall_at_k(dids, gt, 10)
+    print(f"centroid partitions ({D_PARTS}, route_k 2, "
+          f"{out['replicas']} replicas, rows {out['part_rows']}): build "
+          f"{out['centroid_build_s']:.3f} s; recall@10 at ef 40 "
+          f"{out['centroid_recall']:.4f} routed, "
+          f"{out['centroid_all_parts_recall']:.4f} over every partition "
+          f"(search_device); no duplicate id in a row [{card}]", flush=True)
+    rng = np.random.default_rng(23)
+    extra = (base[rng.integers(0, N, N_ADD)]
+             + rng.normal(0.0, 0.5, size=(N_ADD, DIM))).astype(np.float32)
+    t0 = time.perf_counter()
+    gids = pidx.add(extra)
+    out["add_s"] = time.perf_counter() - t0
+    assert (gids == np.arange(N, N + N_ADD)).all()
+    _, ids = pidx.search(extra[:256], k=1, ef_search=40)
+    assert (ids[:, 0] == gids[:256]).all(), "an added row is not found"
+    replicated = np.where(pidx._replica_part >= 0)[0]
+    victims = np.concatenate([replicated[:N_DELETE // 2], rng.choice(
+        N + N_ADD, N_DELETE - N_DELETE // 2, replace=False)])
+    t0 = time.perf_counter()
+    pidx.delete(victims)
+    out["delete_s"] = time.perf_counter() - t0
+    for search in (lambda: pidx.search(queries, k=10, ef_search=40)[1],
+                   lambda: pidx.search_device(qdev, k=10)[1].cpu().numpy()):
+        assert not np.isin(search(), victims).any(), "a deleted id came back"
+    t0 = time.perf_counter()
+    pidx.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    # the added rows now live in blocks: every block of every partition
+    alive = ~np.isin(gids[:256], victims)
+    ids = pidx.search_device(extra[:256], k=1, probes=1 << 30)[1]
+    assert (ids.cpu().numpy()[alive, 0] == gids[:256][alive]).all(), \
+        "lost by compact"
+    _, ids = pidx.search(queries, k=10, ef_search=40)
+    no_dups(ids)
+    assert not np.isin(ids, victims).any()
+    out["recall_after_compact"] = recall_at_k(ids, gt, 10)
+    passes = np.random.default_rng(FILTER_SEED + 3).random(N + N_ADD) \
+        < FILTER_SHARE
+    t0 = time.perf_counter()
+    _, ids = pidx.search_iterative(queries[:CHUNK], k=10, ef_search=40,
+                                   predicate=lambda i: passes[i])
+    out["iterative_s"] = time.perf_counter() - t0
+    got = ids[ids >= 0]
+    assert passes[got].all() and not np.isin(got, victims).any()
+    out["iterative_filled"] = float((ids >= 0).mean())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pidx.save(tmp)
+        back = PartitionedHnswIndex.load(tmp, device=dev)
+        out["save_load_s"] = time.perf_counter() - t0
+    d1, i1 = pidx.search(queries, k=10, ef_search=40)
+    d2, i2 = back.search(queries, k=10, ef_search=40)
+    assert np.array_equal(i1, i2) and np.array_equal(d1, d2), "save/load"
+    print(f"centroid partitions: add {N_ADD} {out['add_s']:.3f} s (found), "
+          f"delete {N_DELETE} ({N_DELETE // 2} replicated) "
+          f"{out['delete_s']:.3f} s (gone), compact {out['compact_s']:.3f} "
+          f"s (recall@10 {out['recall_after_compact']:.4f}), filtered "
+          f"search_iterative {out['iterative_s']:.3f} s "
+          f"({out['iterative_filled']:.4f} filled, every id passes), "
+          f"save+load {out['save_load_s']:.3f} s: identical ids and "
+          f"distances [{card}]", flush=True)
+    del pidx, back
+    torch.cuda.empty_cache()
+
+    sub = base[:SUB_GRAPH_N]
+    sgt = FlatIndex(sub, Metric.L2, device=dev).search(qdev, k=10,
+                                                       exact=True)[1]
+    t0 = time.perf_counter()
+    gidx = PartitionedHnswIndex(cfg, 4, router="hash", engine="graph",
+                                device=dev).build(sub)
+    torch.cuda.synchronize()
+    out["graph_build_s"] = time.perf_counter() - t0
+    kw = dict(ef_search=40, descent_ef=8)
+    d, ids = gidx.search(queries, k=10, **kw)
+    out["graph_recall"] = recall_at_k(ids, sgt, 10)
+    dd, dids = gidx.search_device(qdev, k=10, **kw)
+    out["graph_tie_rows"] = same_up_to_ties(d, ids, dd.cpu().numpy(),
+                                            dids.cpu().numpy())
+    print(f"graph-engine partitions (4 hash over {SUB_GRAPH_N} rows): build "
+          f"{out['graph_build_s']:.3f} s, recall@10 {out['graph_recall']:.4f}"
+          f" at {json.dumps(kw)}; search_device ids equal search's but for "
+          f"the order of equal distances in {out['graph_tie_rows']} rows "
+          f"[{card}]", flush=True)
+    return out
+
+
+def same_up_to_ties(dh, ih, dd, idd) -> int:
+    """The host loop's numpy merge (the reference's unstable np.argsort)
+    against the device merge (lax.top_k's order): the same distances, and
+    the same ids wherever a distance is not tied with another candidate's
+    (a tie at the k-th place may keep either row). Returns the rows that
+    differ."""
+    assert np.array_equal(dh, dd), "host loop and device distances differ"
+    rows = 0
+    for r in np.where((ih != idd).any(1))[0]:
+        rows += 1
+        for c in np.where(ih[r] != idd[r])[0]:
+            tied = (dh[r] == dh[r, c]).sum() > 1 or dh[r, c] == dh[r, -1]
+            assert tied, "an id with an untied distance differs"
+    return rows
+
+
+def config_d_data():
+    """scripts/config_d.py:35-56: the DEEP-10M-shaped rows and queries,
+    L2-normalised (DEEP's 96-d vectors are near unit norm)."""
+    base, queries = synthetic_clustered(D_N, D_DIM, n_queries=D_NQ,
+                                        seed=D_SEED)
+    base /= np.maximum(np.linalg.norm(base, axis=1, keepdims=True), 1e-12)
+    queries /= np.maximum(np.linalg.norm(queries, axis=1, keepdims=True),
+                          1e-12)
+    return base, queries
+
+
+def config_d_phase(card: str, dev: torch.device) -> dict:
+    """Config D at full width: 10M x 96 inner product over 8 hash
+    partitions of BlockHnswIndex (block 256) on one card. The oracle over
+    all 10M rows; expand_topr at d=96 IP held to its plain version before
+    anything is timed; then the path itself with its launch counters set
+    to 0: build, recall@10 over the probe grid to the first point >= 0.95,
+    QPS there through measure_qps (1024-query chunks), launches per chunk,
+    a profiled chunk, host-loop ids against search_device's, peak
+    memory."""
+    out = {}
+    t0 = time.perf_counter()
+    base, queries = config_d_data()
+    out["data_s"] = time.perf_counter() - t0
+    qdev = torch.from_numpy(queries).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    oracle = FlatIndex(base, Metric.IP, device=dev)
+    gt = np.concatenate([oracle.search(qdev[s:s + CHUNK], k=10,
+                                       exact=True)[1]
+                         for s in range(0, D_NQ, CHUNK)])
+    out["oracle_s"] = time.perf_counter() - t0
+    del oracle
+    torch.cuda.empty_cache()
+    print(f"config D data {base.shape} in {out['data_s']:.1f} s; exact "
+          f"oracle over {D_N} rows, {D_NQ} queries in {CHUNK}-query chunks: "
+          f"{out['oracle_s']:.3f} s [{card}]", flush=True)
+
+    cfg = HnswConfig(dim=D_DIM, metric=Metric.IP, m=16, ef_construction=64,
+                     seed=0)
+    t0 = time.perf_counter()
+    pidx = PartitionedHnswIndex(cfg, D_PARTS, router="hash", engine="block",
+                                block_size=BLOCK, device=dev).build(base)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["build_vps"] = D_N / out["build_s"]
+    out["n_blocks"] = [s.n_blocks for s in pidx.parts]
+    print(f"config D build, {D_PARTS} hash partitions: {out['build_s']:.3f} "
+          f"s, {out['build_vps']:.1f} vec/s, blocks {out['n_blocks']} "
+          f"[{card}]", flush=True)
+
+    # expand_topr at the path's new shape, before anything is timed
+    sub, q0 = pidx.parts[0], qdev[:KERNEL_Q]
+    args, kw = routed_args(sub, q0, 8)
+    cscale = (args[1].max() + args[4].max()).item()
+    topr = topr_variants(args, kw, "int8", card, cscale,
+                         "config D partition 0, routed bids")
+    X.LAUNCHES = X.TOPR_LAUNCHES = 0  # the comparisons are not the path's
+
+    chosen, curve = None, []
+    for p in PROBE_GRID:
+        ids = np.concatenate([pidx.search_device(
+            qdev[s:s + CHUNK], k=10, probes=p)[1].cpu().numpy()
+            for s in range(0, D_NQ, CHUNK)])
+        r = recall_at_k(ids, gt, 10)
+        curve.append({"probes": p, "recall": r})
+        print(f"config D probes {p}: recall@10 {r:.4f} [{card}]", flush=True)
+        if r >= TARGET_RECALL:
+            chosen = p
+            break
+    out["curve"] = curve
+    assert chosen is not None, \
+        f"config D: no probe count reached {TARGET_RECALL}: {curve}"
+    out["probes"], out["recall"] = chosen, curve[-1]["recall"]
+    assert ((ids >= 0) & (ids < D_N)).all()
+    st = {}
+    out["qps"], _ = measure_qps(pidx, queries, 10, 0,
+                                pipeline=D_NQ // CHUNK, stats_out=st,
+                                probes=chosen)
+    out["qps_stats"] = st
+    qchunk = qdev[:CHUNK]
+    before = X.TOPR_LAUNCHES
+    d, i = pidx.search_device(qchunk, k=10, probes=chosen)
+    out["topr_launches_per_chunk"] = X.TOPR_LAUNCHES - before
+    assert out["topr_launches_per_chunk"] == D_PARTS, out
+    # distances are inner products of the returned rows
+    ids0 = i.cpu().numpy()
+    want = -(queries[:CHUNK, None, :] * base[ids0]).sum(-1)
+    assert np.abs(d.cpu().numpy() - want).max() <= \
+        2 * D_DIM * float(np.finfo(np.float32).eps)  # unit rows
+    print(f"config D QPS {out['qps']:.1f} at probes {chosen} (recall@10 "
+          f"{out['recall']:.4f}; {CHUNK}-query chunks, cv {st['qps_cv']}, "
+          f"min {st['qps_min']}, max {st['qps_max']}); expand_topr "
+          f"launches per chunk {out['topr_launches_per_chunk']} [{card}]",
+          flush=True)
+    out["breakdown"] = device_breakdown(
+        lambda: pidx.search_device(qchunk, k=10, probes=chosen), card,
+        f"config D, one {CHUNK}-query search_device chunk (8 partitions and "
+        f"the merge)")
+    dh, ih = pidx.search(queries[:CHUNK], k=10, ef_search=40)
+    dd, idd = pidx.search_device(qchunk, k=10, ef_search=40)
+    out["host_loop_tie_rows"] = same_up_to_ties(dh, ih, dd.cpu().numpy(),
+                                                idd.cpu().numpy())
+    out["launches"] = expand_launches()
+    out["peak_mem_GB"] = peak_gb()
+    print(f"config D: host-loop search ids equal search_device's on "
+          f"{CHUNK} queries (ef 40) but for the order of equal distances in "
+          f"{out['host_loop_tie_rows']} rows; peak device memory "
+          f"{out['peak_mem_GB']:.2f} GB [{card}]", flush=True)
+    out["timing"] = routed_timing(sub, q0, chosen, 40, card,
+                                  "config D partition 0 (10M x 96 IP), "
+                                  "routed bids")
+    out["topr_d96"] = topr
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script needs a GPU")
     card = card_line()
     print(f"card: {card}", flush=True)
-    builds = build_phase()
-    t0 = time.perf_counter()
-    base, queries = synthetic_clustered(N, DIM, n_queries=NQ, seed=DATA_SEED)
-    print(f"data {base.shape} in {time.perf_counter() - t0:.1f} s", flush=True)
+    with phase("kernel builds"):
+        builds = build_phase()
+    with phase("1M x 128 data"):
+        base, queries = synthetic_clustered(N, DIM, n_queries=NQ,
+                                            seed=DATA_SEED)
     dev = torch.device("cuda")
-    variants, topr, random_timing = kernel_phase(base, queries, card, dev)
+    with phase("expand kernel checks"):
+        variants, topr, random_timing = kernel_phase(base, queries, card,
+                                                     dev)
 
-    # count only the block path's launches
-    X.LAUNCHES = X.TOPR_LAUNCHES = H.LAUNCHES = 0
-    numbers, idx, gt = main_path(base, queries, card, dev)
-    launches = expand_launches()
-    assert launches["expand_topr"] > 0, \
-        "the block path never launched expand_topr"
-    timings = [random_timing, routed_timing(
-        idx, torch.from_numpy(queries[:KERNEL_Q]).to(dev), numbers["probes"],
-        40, card, "1M x 128 index, routed bids")]
-    qchunk = torch.from_numpy(queries[:CHUNK]).to(dev)
-    breakdowns = [device_breakdown(
-        lambda: idx.search_device(qchunk, k=10, probes=numbers["probes"]),
-        card, f"block path, one {CHUNK}-query search_device chunk")]
-    X.LAUNCHES = X.TOPR_LAUNCHES = 0
-    life = lifecycle_phase(idx, base, queries, numbers["probes"], card, dev)
-    life_launches = expand_launches()
-    assert life_launches["expand_topr"] > 0, \
-        "filter/lifecycle never launched expand_topr"
-    assert life_launches["expand_score"] > 0, \
-        "search_iterative never widened past the fused limit"
-    del idx, qchunk
-    torch.cuda.empty_cache()
+    with phase("block path"):
+        # count only the block path's launches
+        X.LAUNCHES = X.TOPR_LAUNCHES = H.LAUNCHES = 0
+        numbers, idx, gt = main_path(base, queries, card, dev)
+        launches = expand_launches()
+        assert launches["expand_topr"] > 0, \
+            "the block path never launched expand_topr"
+        timings = [random_timing, routed_timing(
+            idx, torch.from_numpy(queries[:KERNEL_Q]).to(dev),
+            numbers["probes"], 40, card, "1M x 128 index, routed bids")]
+        qchunk = torch.from_numpy(queries[:CHUNK]).to(dev)
+        breakdowns = [device_breakdown(
+            lambda: idx.search_device(qchunk, k=10,
+                                      probes=numbers["probes"]),
+            card, f"block path, one {CHUNK}-query search_device chunk")]
+    with phase("block lifecycle"):
+        X.LAUNCHES = X.TOPR_LAUNCHES = 0
+        life = lifecycle_phase(idx, base, queries, numbers["probes"], card,
+                               dev)
+        life_launches = expand_launches()
+        assert life_launches["expand_topr"] > 0, \
+            "filter/lifecycle never launched expand_topr"
+        assert life_launches["expand_score"] > 0, \
+            "search_iterative never widened past the fused limit"
+        del idx, qchunk
+        torch.cuda.empty_cache()
 
     # the graph engine on the same data and ground truth
-    graph, gidx, gkw, gbreak = graph_phase(base, queries, gt, card, dev)
-    breakdowns.append(gbreak)
-    X.LAUNCHES = X.TOPR_LAUNCHES = 0
-    routed = block_graph_routed(base, queries, gt, card, dev)
-    routed_launches = expand_launches()
-    assert routed_launches["expand_topr"] > 0, \
-        "the graph-routed block path never launched expand_topr"
-    graph["block_graph_routed"] = routed
-    graph["lifecycle"] = graph_lifecycle(gidx, base, queries, gkw, card, dev)
-    del gidx, base, queries
-    torch.cuda.empty_cache()
+    with phase("graph"):
+        graph, gidx, gkw, gbreak = graph_phase(base, queries, gt, card, dev)
+        breakdowns.append(gbreak)
+    with phase("graph-routed block"):
+        X.LAUNCHES = X.TOPR_LAUNCHES = 0
+        routed = block_graph_routed(base, queries, gt, card, dev)
+        routed_launches = expand_launches()
+        assert routed_launches["expand_topr"] > 0, \
+            "the graph-routed block path never launched expand_topr"
+        graph["block_graph_routed"] = routed
+    with phase("graph lifecycle"):
+        graph["lifecycle"] = graph_lifecycle(gidx, base, queries, gkw, card,
+                                             dev)
+        del gidx
+        torch.cuda.empty_cache()
 
-    binary = binary_phase(card, dev)
+    # IVF (no kernel of its own), then the partitioned index's other modes
+    with phase("IVF"):
+        ivf = ivf_phase(base, queries, gt, card, dev)
+        torch.cuda.empty_cache()
+    with phase("partition modes"):
+        X.LAUNCHES = X.TOPR_LAUNCHES = 0
+        modes = partition_modes(base, queries, gt, card, dev)
+        modes_launches = expand_launches()
+        assert modes_launches["expand_topr"] > 0, \
+            "the centroid-partitioned block path never launched expand_topr"
+        del base, queries
+        torch.cuda.empty_cache()
+
+    # config D at full width: its launch counters are kept by the phase
+    with phase("config D"):
+        cfg_d = config_d_phase(card, dev)
+        d_launches = cfg_d.pop("launches")
+        assert d_launches["expand_topr"] > 0, \
+            "config D never launched expand_topr"
+        topr.extend(cfg_d.pop("topr_d96"))
+        timings.append(cfg_d.pop("timing"))
+        breakdowns.append(cfg_d.pop("breakdown"))
+        torch.cuda.empty_cache()
+
+    with phase("binary"):
+        binary = binary_phase(card, dev)
     variants.extend(binary["expand_d1536"])
     topr.extend(binary["topr_d1536"])
     timings.extend(binary["timings"])
@@ -1421,8 +1895,10 @@ def main() -> None:
                 and v["metric"] == "l2" and v["p"] == 8 and v["d"] == DIM
                 and not v["masked"])
     print(json.dumps({"main_path": numbers, "lifecycle": life,
-                      "graph": graph, "binary": binary["numbers"],
-                      "nvcc_s": builds, "card": card}), flush=True)
+                      "graph": graph, "ivf": ivf, "partition_modes": modes,
+                      "config_d": cfg_d, "binary": binary["numbers"],
+                      "nvcc_s": builds, "phase_s": PHASE_S, "card": card}),
+          flush=True)
     topk = binary["topk"]
     fused = next(v for v in topk if v["metric"] == "hamming"
                  and v["k"] == 10 and v["Q"] == KERNEL_Q
@@ -1433,6 +1909,8 @@ def main() -> None:
     by_path = {name: {"block_1Mx128": launches[name],
                       "block_lifecycle": life_launches[name],
                       "block_graph_routed_1Mx128": routed_launches[name],
+                      "partitioned_centroid_1Mx128": modes_launches[name],
+                      "config_d_10Mx96": d_launches[name],
                       "binary_1Mx1536": launches_bin[name]}
                for name in ("expand_score", "expand_topr")}
     print(json.dumps({"stage1_timings": timings,

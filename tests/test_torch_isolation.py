@@ -1,10 +1,15 @@
 """tpu_hnsw_torch stands alone: importing it and running builds and
-searches (block, binary and graph engines) loads neither JAX nor
-tpu_hnsw."""
+searches (block, binary, graph, IVF and partitioned indexes, and the QPS
+harness) loads neither JAX nor tpu_hnsw. The entry points added with IVF
+and partitioning default to the card."""
 
 import os
 import subprocess
 import sys
+
+import numpy as np
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,6 +44,20 @@ assert recall_at_k(ids, FlatIndex(base[:400], Metric.L2, device="cpu").search(
 bg = BinaryHnswIndex(16, device="cpu").build(bits[:300])
 d, _ = bg.search(bits[:8], k=5)
 assert (d[:, 0] == 0).all()
+from tpu_hnsw_torch import IvfFlatIndex, PartitionedHnswIndex
+from tpu_hnsw_torch.utils.evalharness import measure_qps
+ivf = IvfFlatIndex(16, lists=8, device="cpu").build(base)
+_, ids = ivf.search(q, k=5, probes=8)
+assert recall_at_k(ids, gt, 5) == 1.0
+for engine in ("block", "graph"):
+    part = PartitionedHnswIndex(HnswConfig(dim=16, m=8, ef_construction=32,
+                                           wave_size=64), 2, engine=engine,
+                                block_size=64, device="cpu").build(base[:400])
+    _, ids = part.search(q, k=5, ef_search=64)
+    _, dids = part.search_device(q, k=5, ef_search=64)
+    assert (dids.numpy() == ids).all()
+qps, ids = measure_qps(ivf, q, 5, 0, repeats=1, min_window_s=0.0, probes=8)
+assert qps > 0 and recall_at_k(ids, gt, 5) == 1.0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tpu_hnsw"))
 print("LOADED", bad)
@@ -50,3 +69,25 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_ivf_and_partitioned_default_to_the_card(monkeypatch):
+    """IvfFlatIndex and PartitionedHnswIndex (and its centroid router) go
+    to CUDA without a device; without a card that raises instead of
+    running on the CPU."""
+    from tpu_hnsw_torch import HnswConfig, IvfFlatIndex, PartitionedHnswIndex
+
+    cfg = HnswConfig(dim=4)
+    assert IvfFlatIndex(4, device="cpu").device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            IvfFlatIndex(4)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PartitionedHnswIndex(cfg, 2, router="centroid")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert IvfFlatIndex(4).device.type == "cuda"
+    part = PartitionedHnswIndex(cfg, 2, router="centroid")
+    assert part.device.type == part.router.device.type == "cuda"
+    cpu = PartitionedHnswIndex(cfg, 2, engine="block", device="cpu").build(
+        np.eye(4, dtype=np.float32))
+    assert all(s.device.type == "cpu" for s in cpu.parts)

@@ -21,7 +21,10 @@ from tpu_hnsw_torch.index.binary import BinaryHnswIndex  # noqa: E402
 from tpu_hnsw_torch.index.block import BlockHnswIndex  # noqa: E402
 from tpu_hnsw_torch.index.flat import FlatIndex  # noqa: E402
 from tpu_hnsw_torch.index.hnsw import HnswIndex  # noqa: E402
+from tpu_hnsw_torch.index.ivf import IvfFlatIndex  # noqa: E402
 from tpu_hnsw_torch.ops.bitops import BinaryFlatIndex  # noqa: E402
+from tpu_hnsw_torch.parallel.partition import PartitionedHnswIndex  # noqa: E402
 
 __all__ = ["BinaryFlatIndex", "BinaryHnswIndex", "BlockHnswIndex",
-           "FlatIndex", "HnswConfig", "HnswIndex", "Metric"]
+           "FlatIndex", "HnswConfig", "HnswIndex", "IvfFlatIndex", "Metric",
+           "PartitionedHnswIndex"]

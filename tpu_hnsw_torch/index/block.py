@@ -166,8 +166,9 @@ def _route_exact(centroids, c_sq, q, q_sq, *, p: int, metric: Metric):
 
 def _route_exact_sorted(centroids, c_sq, q, q_sq, *, p: int, metric: Metric):
     """Fully sorted top-p block ranking (block.py:314-333): prefix-consistent,
-    so iterative scans expand column slices ``[p_prev, p)`` of one ranking."""
-    return T.topk_smallest(
+    so iterative scans expand column slices ``[p_prev, p)`` of one ranking.
+    ``lax.top_k``'s order: ties to the lower block."""
+    return T.topk_smallest_by_index(
         _centroid_scores(centroids, c_sq, q, q_sq, metric), p)[1]
 
 
@@ -186,7 +187,7 @@ def _scan_tail(tail, tail_sq, tail_ids, q, q_sq, allowed_tail=None, *,
         dead |= ~allowed_tail
     sc = torch.where(dead[None, :], torch.inf, sc)
     kk = min(k, tail.shape[0])
-    vals, sel = T.topk_smallest(sc, kk)
+    vals, sel = T.topk_smallest_by_index(sc, kk)
     ids = torch.where(torch.isfinite(vals), tail_ids[sel], -1)
     if kk < k:
         vals = F.pad(vals, (0, k - kk), value=torch.inf)
@@ -542,13 +543,17 @@ class BlockHnswIndex:
         return max(1, min(p, self.n_blocks))
 
     # ----------------------------------------------------------------- build
-    def build(self, data, kmeans_iters: int = 10) -> "BlockHnswIndex":
+    def build(self, data, kmeans_iters: int = 10,
+              device_data: torch.Tensor | None = None) -> "BlockHnswIndex":
         """CREATE INDEX analogue: k-means, balanced pack, install. ``data``
         is an ``[n, d]`` array or tensor (a tensor is used where it lies
-        when that is the index's device). Stage times land in
+        when that is the index's device). ``device_data``, the reference's
+        keyword, takes the place of ``data`` when given. Stage times land in
         ``self.build_stats``."""
         if self.score_dtype not in ("int8", "bf16"):
             raise ValueError("score_dtype must be int8|bf16")
+        if device_data is not None:
+            data = device_data
         t0 = time.perf_counter()
         device_input = isinstance(data, torch.Tensor)
         if device_input:
@@ -830,7 +835,8 @@ class BlockHnswIndex:
         if self.tail_n:
             t_sc, t_ids = self._tail_scores(qt, D.squared_norms(qt), k,
                                             allowed_tail)
-            sc, sel = T.topk_smallest(torch.cat([sc, t_sc], 1), k)
+            # lax.top_k's order: ties to the block result over the tail
+            sc, sel = T.topk_smallest_by_index(torch.cat([sc, t_sc], 1), k)
             ids = torch.gather(torch.cat([ids, t_ids], 1), 1, sel)
         return D.score_to_distance(sc, metric), ids
 
@@ -859,7 +865,7 @@ class BlockHnswIndex:
         v = self.blocks.reshape(-1, d)[safe]
         sc2 = torch.where(bad, torch.inf,
                           D.batched_scores(qt, v, self.cfg.metric))
-        vals, sel = T.topk_smallest(sc2, k)
+        vals, sel = T.topk_smallest_by_index(sc2, k)
         cand_ids = torch.where(bad, -1, self.block_ids.reshape(-1)[safe])
         ids = torch.gather(cand_ids, 1, sel)
         return vals, torch.where(torch.isfinite(vals), ids, -1)

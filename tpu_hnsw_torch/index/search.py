@@ -285,10 +285,7 @@ def _scan_seeds_body(g: G.HnswGraph, q: torch.Tensor, upper_ids: torch.Tensor,
         sc = -dots
     sc = torch.where(upper_ids[None, :] == g.sentinel, torch.inf, sc)
     kk = min(descent_ef, sc.shape[1])
-    if sc.shape[1] <= 256:  # lax.top_k in the reference, ties by position
-        ti = T.topk_smallest_by_index(sc, kk)[1]
-    else:  # its approx_min_k, which orders ties arbitrarily: exact here
-        ti = T.topk_smallest(sc, kk)[1]
+    ti = T.topk_smallest_fast(sc, kk)[1]
     return upper_ids[ti]
 
 

@@ -8,6 +8,8 @@ same calls in the same order, so both packages can be held to one corpus.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -89,3 +91,31 @@ def synthetic_uniform(
         0.0, 1.0, size=(n_queries, dim)
     ).astype(np.float32)
     return base.astype(dtype), queries.astype(dtype)
+
+
+def load_or_synthesize(
+    name: str, data_dir: str | None = None
+) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
+    """A named benchmark dataset from ``data_dir`` when its
+    ``<name>_{base,query}.fvecs`` (and optionally ``_groundtruth.ivecs``)
+    are there, else a synthetic stand-in of its shape (the reference's
+    arrays, byte for byte). Returns (base, queries, ground_truth or None).
+    Names: sift10k, sift1m, glove100, deep10m."""
+    shapes = {
+        "sift10k": (10_000, 128, 100),
+        "sift1m": (1_000_000, 128, 10_000),
+        "glove100": (1_183_514, 100, 10_000),
+        "deep10m": (10_000_000, 96, 10_000),
+    }
+    if name not in shapes:
+        raise ValueError(f"unknown dataset {name}")
+    n, dim, nq = shapes[name]
+    if data_dir:
+        base_p = os.path.join(data_dir, f"{name}_base.fvecs")
+        query_p = os.path.join(data_dir, f"{name}_query.fvecs")
+        gt_p = os.path.join(data_dir, f"{name}_groundtruth.ivecs")
+        if os.path.exists(base_p) and os.path.exists(query_p):
+            gt = read_ivecs(gt_p) if os.path.exists(gt_p) else None
+            return read_fvecs(base_p), read_fvecs(query_p), gt
+    base, queries = synthetic_clustered(n, dim, n_queries=nq)
+    return base, queries, None

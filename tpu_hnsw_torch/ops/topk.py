@@ -17,10 +17,15 @@ def topk_smallest(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Ten
 def topk_smallest_fast(
     scores: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The reference's wide-row top-k. On the TPU it is ``lax.approx_min_k``
-    (the hardware partial reduce); the GPU has no counterpart, so this is
-    the exact :func:`topk_smallest`. Kept as its own name so each call site
-    maps onto the reference's."""
+    """The reference's wide-row top-k (topk.py:24-38). Rows up to 256 wide,
+    or k covering the row, take its exact ``lax.top_k``: ties to the lower
+    index (:func:`topk_smallest_by_index`). Wider rows take
+    ``lax.approx_min_k`` there, which orders ties arbitrarily; the GPU has
+    no hardware partial reduce, so they take the exact
+    :func:`topk_smallest`."""
+    width = scores.shape[-1]
+    if width <= 256 or k >= width:
+        return topk_smallest_by_index(scores, k)
     return topk_smallest(scores, k)
 
 
@@ -81,3 +86,27 @@ def lexsort_order(t: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     b = b ^ ((b >> 31) & 0x7FFFFFFF)
     key = t.to(torch.int64) * (1 << 32) + (b.to(torch.int64) + (1 << 31))
     return torch.sort(key, stable=True).indices
+
+
+def kway_merge_topk(dists: torch.Tensor, ids: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-partition top-k lists ``[..., P, K]`` -> a global top-k
+    ``[..., k]`` (topk.py:67-81): one top-k over the P*K flat positions in
+    ``lax.top_k``'s order, ties to the lower flat position."""
+    flat_d = dists.reshape(*dists.shape[:-2], -1)
+    flat_i = ids.reshape(*ids.shape[:-2], -1)
+    vals, sel = topk_smallest_by_index(flat_d, k)
+    return vals, torch.gather(flat_i, -1, sel)
+
+
+def mask_duplicate_ids(d: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``d`` with +inf wherever the id (>= 0) already appeared in an earlier
+    column of the same row (topk.py:84-97): the merge dedup for replicas,
+    which reach it with identical distances. ``[Q, w]`` each; the
+    ``[Q, w, w]`` compare is small (w = P*k)."""
+    w = i.shape[1]
+    eq = (i[:, :, None] == i[:, None, :]) & (i[:, :, None] >= 0)
+    earlier = torch.ones((w, w), dtype=torch.bool,
+                         device=i.device).tril(-1)
+    dup = (eq & earlier[None]).any(-1)
+    return torch.where(dup, torch.inf, d)
