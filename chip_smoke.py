@@ -8,6 +8,9 @@ plain version):
 1. require CUDA, then print the card (``nvidia-smi`` name and power limit);
 2. build both kernel libraries (``expand_score``, ``hamming_scan``) from
    ``tpu_hnsw_torch/csrc`` with two ``nvcc`` processes started together;
+   then the three merges of ``parallel/collectives.py`` under a one-rank
+   NCCL group (a file rendezvous on the loopback device), each equal to
+   the local merge;
 3. hold both entries of ``csrc/expand_score.cu`` against their plain
    PyTorch versions at main-path shapes (Q=1024, S=256, d=128, B=4102,
    uniform random bids): ``expand_score`` at p in {8, 32} in f32, bf16 and
@@ -36,7 +39,11 @@ plain version):
    ``PartitionedHnswIndex`` over them: 8 centroid partitions (route_k 2,
    5% replicas, block engine) with recall, no duplicate id, DML, compact,
    a filtered ``search_iterative`` and save/load, and 4 graph-engine hash
-   partitions over 200,000 rows;
+   partitions over 200,000 rows; then both through their stacked
+   searchers (``sharded()``) against the host loop, ring against gather,
+   and ``ShardedBlockSearcher.from_saved`` in slabs of a quarter of a
+   partition: ids equal to the in-memory searcher's, peak memory within
+   the serving bytes plus two slabs and 16 MB;
 7. config D at full width: ``synthetic_clustered(10_000_000, 96,
    n_queries=8192, seed=13)`` L2-normalised, 8 hash partitions of
    ``BlockHnswIndex`` (inner product, block 256), the exact oracle over all
@@ -44,7 +51,12 @@ plain version):
    over the probe grid to the first point >= 0.95, QPS there, 8
    ``expand_topr`` launches a chunk, a profiled chunk, the host-loop
    ``search`` against ``search_device`` (equal up to tied distances), peak
-   memory;
+   memory; then the same index through ``sharded()``: ids against the host
+   loop's ``search_device``, ``release_parts_device_state``, the probe grid,
+   QPS, one ``expand_topr`` launch a chunk, a profiled chunk and the
+   serving peak beside the host loop's, and ``expand_topr`` at the stacked
+   shape (8,192 virtual queries over the 41,016 stacked blocks) against
+   its plain version and timed;
 8. the binary path at full width: ``binary_quantize`` of
    ``synthetic_clustered(1_000_000, 1536, n_queries=4096, seed=42)`` (the
    shape of dbpedia-entities-openai-1M, binary-quantized as pgvector's
@@ -73,8 +85,9 @@ plain version):
 Each path's kernel launch counters are set to 0 just before it and read
 just after it; launches made to compare a kernel with its plain version
 are not counted. Stage 1 of the block, lifecycle, graph-routed,
-partitioned (centroid and config D) and binary paths must launch
-``expand_topr``; the lifecycle's filtered ``search_iterative``
+partitioned (centroid, config D and stacked config D) and binary paths
+must launch ``expand_topr`` (stacked config D once a chunk); the
+lifecycle's filtered ``search_iterative``
 widens past the fused limit and must launch ``expand_score`` too. A
 kernel's ``launches`` in the JSON line sums its paths'. ``bound_ms`` is
 the larger of the bytes a call must move (each input read once, each
@@ -85,8 +98,10 @@ outside the tensor cores: 67 TFLOP/s).
 
 from __future__ import annotations
 
+import datetime
 import json
 import math
+import os
 import subprocess
 import tempfile
 import time
@@ -98,7 +113,8 @@ import torch
 
 from tpu_hnsw_torch import (BinaryFlatIndex, BinaryHnswIndex, BlockHnswIndex,
                             FlatIndex, HnswConfig, HnswIndex, IvfFlatIndex,
-                            Metric, PartitionedHnswIndex)
+                            Metric, PartitionedHnswIndex,
+                            ShardedBlockSearcher)
 from tpu_hnsw_torch.index.block import (_make_score_copy, _pad_cols,
                                         _quantize_rows, _route_exact)
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
@@ -108,6 +124,7 @@ from tpu_hnsw_torch.ops import expand as X
 from tpu_hnsw_torch.ops import hamming as H
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.ops.vector_ops import binary_quantize
+from tpu_hnsw_torch.parallel import collectives as C
 from tpu_hnsw_torch.utils.evalharness import measure_qps
 from tpu_hnsw_torch.utils.recall import recall_at_k
 
@@ -1643,7 +1660,7 @@ def partition_modes(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
           f"({out['iterative_filled']:.4f} filled, every id passes), "
           f"save+load {out['save_load_s']:.3f} s: identical ids and "
           f"distances [{card}]", flush=True)
-    del pidx, back
+    del back
     torch.cuda.empty_cache()
 
     sub = base[:SUB_GRAPH_N]
@@ -1665,21 +1682,32 @@ def partition_modes(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
           f" at {json.dumps(kw)}; search_device ids equal search's but for "
           f"the order of equal distances in {out['graph_tie_rows']} rows "
           f"[{card}]", flush=True)
+    out["stacked"] = stacked_modes(pidx, gidx, queries, qdev, card)
     return out
 
 
-def same_up_to_ties(dh, ih, dd, idd) -> int:
+def same_up_to_ties(dh, ih, dd, idd, rtol: float = 0.0) -> int:
     """The host loop's numpy merge (the reference's unstable np.argsort)
     against the device merge (lax.top_k's order): the same distances, and
     the same ids wherever a distance is not tied with another candidate's
-    (a tie at the k-th place may keep either row). Returns the rows that
-    differ."""
-    assert np.array_equal(dh, dd), "host loop and device distances differ"
+    (a tie at the k-th place may keep either row). With ``rtol`` two
+    distances count as equal within rtol of the row's largest finite
+    magnitude (f32 rounding of a product batched differently). Returns the
+    rows that differ."""
+    assert np.array_equal(np.isinf(dh), np.isinf(dd)), "missing results"
+    fin = np.isfinite(dh)
+    tol = rtol * np.maximum(np.abs(np.where(fin, dh, 0)).max(1), 1.0)
+    diff = np.where(fin, np.abs(dh - np.where(fin, dd, 0)), 0)
+    assert (diff <= tol[:, None]).all(), \
+        f"host loop and device distances differ by {diff.max()}"
     rows = 0
     for r in np.where((ih != idd).any(1))[0]:
         rows += 1
+        with np.errstate(invalid="ignore"):  # inf - inf
+            near = (dh[r][:, None] == dh[r][None, :]) | (
+                np.abs(dh[r][:, None] - dh[r][None, :]) <= tol[r])
         for c in np.where(ih[r] != idd[r])[0]:
-            tied = (dh[r] == dh[r, c]).sum() > 1 or dh[r, c] == dh[r, -1]
+            tied = near[c].sum() > 1 or near[c, -1]
             assert tied, "an id with an untied distance differs"
     return rows
 
@@ -1761,9 +1789,12 @@ def config_d_phase(card: str, dev: torch.device) -> dict:
     out["probes"], out["recall"] = chosen, curve[-1]["recall"]
     assert ((ids >= 0) & (ids < D_N)).all()
     st = {}
+    build_peak = peak_gb()
+    torch.cuda.reset_peak_memory_stats()
     out["qps"], _ = measure_qps(pidx, queries, 10, 0,
                                 pipeline=D_NQ // CHUNK, stats_out=st,
                                 probes=chosen)
+    out["serve_peak_GB"] = peak_gb()
     out["qps_stats"] = st
     qchunk = qdev[:CHUNK]
     before = X.TOPR_LAUNCHES
@@ -1789,7 +1820,7 @@ def config_d_phase(card: str, dev: torch.device) -> dict:
     out["host_loop_tie_rows"] = same_up_to_ties(dh, ih, dd.cpu().numpy(),
                                                 idd.cpu().numpy())
     out["launches"] = expand_launches()
-    out["peak_mem_GB"] = peak_gb()
+    out["peak_mem_GB"] = max(build_peak, peak_gb())
     print(f"config D: host-loop search ids equal search_device's on "
           f"{CHUNK} queries (ef 40) but for the order of equal distances in "
           f"{out['host_loop_tie_rows']} rows; peak device memory "
@@ -1798,6 +1829,235 @@ def config_d_phase(card: str, dev: torch.device) -> dict:
                                   "config D partition 0 (10M x 96 IP), "
                                   "routed bids")
     out["topr_d96"] = topr
+    # the same index served through the stacked searcher, in this call
+    out["stacked"] = config_d_stacked(pidx, queries, qdev, gt, out, card)
+    return out
+
+
+#: distances of the stacked searcher against the host loop: equal within this
+#: share of a row's largest magnitude (its rerank batches the f32 products of
+#: every partition into one call)
+STACKED_RTOL = 1e-6
+
+
+def stacked_args(sh, q, probes: int):
+    """Stage 1's operands as a stacked search makes them (int8 copy): the
+    ``[P*b, S, dp]`` stacked table, ``Q*P`` virtual queries (query-major)
+    and the block ids the stacked routing gives them at ``probes``."""
+    L, b, S = sh.blocks.shape[:3]
+    q_sq = (q * q).sum(1)
+    bids = sh._route(q, q_sq, None, probes)
+    qv = _pad_cols(q.repeat_interleave(L, 0), sh.blocks_score.shape[3])
+    q8, q_scl = _quantize_rows(qv)
+    args = (sh.blocks_score.view(L * b, S, -1), sh.blocks_sq.view(L * b, S),
+            sh.block_gids.view(L * b, S), qv, q_sq.repeat_interleave(L, 0),
+            bids, sh.parent.cfg.metric)
+    return args, dict(q8=q8, q_scale=q_scl,
+                      score_scale=sh.score_scales.view(-1))
+
+
+def config_d_stacked(pidx, queries: np.ndarray, qdev, gt, host: dict,
+                     card: str) -> dict:
+    """Config D served through ``pidx.sharded()``: one route GEMM, one
+    expand_topr launch and one rerank a chunk for all 8 partitions. Its
+    ids against the host loop's search_device (equal up to tied
+    distances), ``release_parts_device_state``, then the stacked path with
+    its launch counters set to 0: recall@10 over the probe grid to the
+    first point >= 0.95, QPS through measure_qps, launches a chunk, a
+    profiled chunk and the serving peak, beside the host loop's from this
+    call. Then (not counted) expand_topr at the stacked shape held to its
+    plain version and timed."""
+    out = {}
+    probes, qchunk = host["probes"], qdev[:CHUNK]
+    hd, hi = pidx.search_device(qchunk, k=10, probes=probes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh = pidx.sharded()
+    torch.cuda.synchronize()
+    out["assemble_s"] = time.perf_counter() - t0
+    out["state_GB"] = sh.stats()["memory_total_bytes"] / 1e9
+    X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    d, ids = sh.search(qchunk, k=10, probes=probes)
+    out["host_loop_tie_rows"] = same_up_to_ties(
+        hd.cpu().numpy(), hi.cpu().numpy(), d, ids, rtol=STACKED_RTOL)
+    out["max_abs_dist_diff"] = float(np.abs(d - hd.cpu().numpy())[
+        np.isfinite(d)].max())
+    print(f"config D stacked: sharded() in {out['assemble_s']:.3f} s "
+          f"({out['state_GB']:.3f} GB stacked); ids equal the host loop's "
+          f"search_device on {CHUNK} queries at probes {probes} but for the "
+          f"order of equal distances in {out['host_loop_tie_rows']} rows "
+          f"(distances within {out['max_abs_dist_diff']:.3g}) [{card}]",
+          flush=True)
+    sh.release_parts_device_state()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["after_release_GB"] = torch.cuda.memory_allocated() / 1e9
+    chosen, curve = None, []
+    for p in PROBE_GRID:
+        got = np.concatenate([sh.search_device(
+            qdev[s:s + CHUNK], k=10, probes=p)[1].cpu().numpy()
+            for s in range(0, D_NQ, CHUNK)])
+        r = recall_at_k(got, gt, 10)
+        curve.append({"probes": p, "recall": r})
+        print(f"config D stacked probes {p}: recall@10 {r:.4f} [{card}]",
+              flush=True)
+        if r >= TARGET_RECALL:
+            chosen = p
+            break
+    out["curve"] = curve
+    assert chosen == probes, f"stacked recall curve {curve} against {host}"
+    out["probes"], out["recall"] = chosen, curve[-1]["recall"]
+    st = {}
+    out["qps"], _ = measure_qps(sh, queries, 10, 0, pipeline=D_NQ // CHUNK,
+                                stats_out=st, probes=chosen)
+    out["qps_stats"] = st
+    before = X.TOPR_LAUNCHES
+    sh.search_device(qchunk, k=10, probes=chosen)
+    out["topr_launches_per_chunk"] = X.TOPR_LAUNCHES - before
+    assert out["topr_launches_per_chunk"] == 1, out
+    out["breakdown"] = device_breakdown(
+        lambda: sh.search_device(qchunk, k=10, probes=chosen), card,
+        f"config D stacked, one {CHUNK}-query search_device chunk (8 "
+        f"partitions in one batch and the merge)")
+    out["launches"] = expand_launches()
+    out["serve_peak_GB"] = peak_gb()
+    hb, sb = host["breakdown"], out["breakdown"]
+    print(f"config D, host loop | stacked, at probes {chosen} [{card}]: "
+          f"QPS {host['qps']:.1f} | {out['qps']:.1f} (cv "
+          f"{host['qps_stats']['qps_cv']} | {st['qps_cv']}); device busy "
+          f"{hb['busy_share']:.1%} | {sb['busy_share']:.1%}; device ops a "
+          f"chunk {hb['kernels']} | {sb['kernels']}; host wall a chunk "
+          f"{hb['host_wall_ms']:.3f} | {sb['host_wall_ms']:.3f} ms; "
+          f"expand_topr launches a chunk {host['topr_launches_per_chunk']} | "
+          f"{out['topr_launches_per_chunk']}; serving peak "
+          f"{host['serve_peak_GB']:.2f} | {out['serve_peak_GB']:.2f} GB",
+          flush=True)
+
+    # expand_topr at the stacked shape, before it is timed (not counted)
+    args, kw = stacked_args(sh, qchunk, chosen)
+    cscale = (args[1].max() + args[4].max()).item()
+    what = (f"config D stacked, {args[5].shape[0]} virtual queries, "
+            f"B={args[0].shape[0]}")
+    out["topr"] = topr_variants(args, kw, "int8", card, cscale, what,
+                                nqs=(args[5].shape[0], RAGGED_Q))
+    out["timing"] = stage1_timing(args, kw, 40, card, what)
+    X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    return out
+
+
+def stacked_modes(pidx, gidx, queries: np.ndarray, qdev, card: str) -> dict:
+    """The stacked searchers on the partitioned-modes indexes: the 8
+    compacted centroid partitions through sharded() against the host loop
+    over every partition, ring against gather, then save and from_saved
+    with slabs of a quarter of a partition: ids equal to the in-memory
+    searcher's, and the load's peak device memory within the serving bytes
+    plus one slab and the slab's temporaries (one more slab) and 16 MB;
+    the 4 graph partitions through ShardedHnswSearcher against the host
+    loop."""
+    out = {}
+    qchunk = qdev[:CHUNK]
+    sh = pidx.sharded()
+    hd, hi = pidx.search_device(qchunk, k=10, ef_search=40)
+    d, ids = sh.search(qchunk, k=10, ef_search=40, route_k=pidx.p)
+    out["host_loop_tie_rows"] = same_up_to_ties(
+        hd.cpu().numpy(), hi.cpu().numpy(), d, ids, rtol=STACKED_RTOL)
+    dr, ir = sh.search(qchunk, k=10, ef_search=40, merge="ring")
+    dg, ig = sh.search(qchunk, k=10, ef_search=40)
+    assert np.array_equal(ir, ig) and np.array_equal(dr, dg), "ring"
+    S, dim = sh.blocks.shape[2], sh.blocks.shape[3]
+    slab = max(1, max(s.n_blocks for s in pidx.parts) // 4)
+    chunk_bytes = slab * S * dim * 4
+    with tempfile.TemporaryDirectory() as tmp:
+        pidx.save(tmp)
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ld = ShardedBlockSearcher.from_saved(tmp, chunk_bytes=chunk_bytes)
+        torch.cuda.synchronize()
+        out["from_saved_s"] = time.perf_counter() - t0
+        out["from_saved_peak_MB"] = (torch.cuda.max_memory_allocated()
+                                     - base_bytes) / 1e6
+    serving = sum(t.numel() * t.element_size() for t in (
+        ld.blocks, ld.blocks_score, ld.blocks_sq, ld.block_gids,
+        ld.centroids, ld.centroids_sq, ld.score_scales))
+    out["serving_MB"], out["slab_MB"] = serving / 1e6, chunk_bytes / 1e6
+    out["slabs_per_partition"] = -(-ld.blocks.shape[1] // slab)
+    assert out["slabs_per_partition"] >= 4, out
+    bound = serving + 2 * chunk_bytes + (16 << 20)
+    assert out["from_saved_peak_MB"] * 1e6 <= bound, out
+    d0, i0 = sh.search(qchunk, k=10, ef_search=40)
+    d1, i1 = ld.search(qchunk, k=10, ef_search=40)
+    assert np.array_equal(i0, i1), "from_saved ids differ from in memory"
+    out["from_saved_max_dist_diff"] = float(np.abs(d0 - d1)[
+        np.isfinite(d0)].max())
+    print(f"centroid partitions stacked: ids equal the host loop's over "
+          f"every partition but for the order of equal distances in "
+          f"{out['host_loop_tie_rows']} rows; ring equals gather; "
+          f"from_saved ({out['slabs_per_partition']} slabs of "
+          f"{out['slab_MB']:.1f} MB a partition) in {out['from_saved_s']:.3f}"
+          f" s, ids equal the in-memory searcher's (distances within "
+          f"{out['from_saved_max_dist_diff']:.3g}), peak "
+          f"{out['from_saved_peak_MB']:.1f} MB over {out['serving_MB']:.1f} "
+          f"MB of serving state (bound: + 2 slabs + 16 MB) [{card}]",
+          flush=True)
+    del sh, ld
+    torch.cuda.empty_cache()
+    kw = dict(ef_search=40, descent_ef=8)
+    gsh = gidx.sharded()
+    dh, ih = gidx.search(queries[:CHUNK], k=10, **kw)
+    dg, ig = gsh.search(queries[:CHUNK], k=10, **kw)
+    out["graph_tie_rows"] = same_up_to_ties(dh, ih, dg, ig,
+                                            rtol=STACKED_RTOL)
+    print(f"graph partitions through ShardedHnswSearcher ({json.dumps(kw)}): "
+          f"ids equal the host loop's but for the order of equal distances "
+          f"in {out['graph_tie_rows']} rows [{card}]", flush=True)
+    return out
+
+
+def collectives_phase(card: str, dev: torch.device) -> dict:
+    """The three merges of parallel/collectives.py under a one-rank NCCL
+    group (a file rendezvous on the loopback device), each equal to the
+    local merge on tie-heavy lists with replica ids, with and without
+    dedup; the gather's ms beside the local merge's."""
+    import torch.distributed as dist
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, 40, size=(CHUNK, 80))).to(dev)
+    of_id = torch.from_numpy(rng.integers(0, 6, size=(CHUNK, 40)).astype(
+        np.float32)).to(dev)
+    d = torch.gather(of_id, 1, ids)
+    d[:, -5:], ids[:, -5:] = torch.inf, -1
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            world = dist.group.WORLD
+            for dedup in (False, True):
+                want = C.gather_merge_topk(d, ids, 10, None, dedup=dedup)
+                for name, got in (
+                        ("gather", C.gather_merge_topk(d, ids, 10, world,
+                                                       dedup=dedup)),
+                        ("ring", C.ring_merge_topk(d, ids, 10, world,
+                                                   dedup=dedup)),
+                        ("hierarchical", C.hierarchical_merge_topk(
+                            d, ids, 10, world, world, dedup=dedup))):
+                    assert torch.equal(got[0], want[0]) and torch.equal(
+                        got[1], want[1]), (name, dedup)
+            out["gather_ms"] = cuda_ms(lambda: C.gather_merge_topk(
+                d, ids, 10, world, dedup=True), 20)
+            out["local_ms"] = cuda_ms(lambda: C.gather_merge_topk(
+                d, ids, 10, None, dedup=True), 20)
+        finally:
+            dist.destroy_process_group()
+    print(f"collectives under a one-rank NCCL group: gather, ring and "
+          f"hierarchical merges of [{CHUNK}, 80] candidates equal the local "
+          f"merge, with and without dedup; gather {out['gather_ms']:.4f} ms "
+          f"against {out['local_ms']:.4f} ms local [{card}]", flush=True)
     return out
 
 
@@ -1808,6 +2068,8 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     with phase("kernel builds"):
         builds = build_phase()
+    with phase("collectives"):
+        merges = collectives_phase(card, torch.device("cuda"))
     with phase("1M x 128 data"):
         base, queries = synthetic_clustered(N, DIM, n_queries=NQ,
                                             seed=DATA_SEED)
@@ -1882,6 +2144,13 @@ def main() -> None:
         topr.extend(cfg_d.pop("topr_d96"))
         timings.append(cfg_d.pop("timing"))
         breakdowns.append(cfg_d.pop("breakdown"))
+        stacked = cfg_d["stacked"]
+        d_stacked_launches = stacked.pop("launches")
+        assert d_stacked_launches["expand_topr"] > 0, \
+            "stacked config D never launched expand_topr"
+        topr.extend(stacked.pop("topr"))
+        timings.append(stacked.pop("timing"))
+        breakdowns.append(stacked.pop("breakdown"))
         torch.cuda.empty_cache()
 
     with phase("binary"):
@@ -1897,6 +2166,7 @@ def main() -> None:
     print(json.dumps({"main_path": numbers, "lifecycle": life,
                       "graph": graph, "ivf": ivf, "partition_modes": modes,
                       "config_d": cfg_d, "binary": binary["numbers"],
+                      "collectives": merges,
                       "nvcc_s": builds, "phase_s": PHASE_S, "card": card}),
           flush=True)
     topk = binary["topk"]
@@ -1911,6 +2181,7 @@ def main() -> None:
                       "block_graph_routed_1Mx128": routed_launches[name],
                       "partitioned_centroid_1Mx128": modes_launches[name],
                       "config_d_10Mx96": d_launches[name],
+                      "config_d_stacked_10Mx96": d_stacked_launches[name],
                       "binary_1Mx1536": launches_bin[name]}
                for name in ("expand_score", "expand_topr")}
     print(json.dumps({"stage1_timings": timings,

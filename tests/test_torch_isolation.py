@@ -1,7 +1,8 @@
 """tpu_hnsw_torch stands alone: importing it and running builds and
-searches (block, binary, graph, IVF and partitioned indexes, and the QPS
-harness) loads neither JAX nor tpu_hnsw. The entry points added with IVF
-and partitioning default to the card."""
+searches (block, binary, graph, IVF and partitioned indexes, the stacked
+searchers, the merge collectives and the QPS harness) loads neither JAX
+nor tpu_hnsw. The entry points added with IVF and partitioning, and the
+stacked searchers, default to the card."""
 
 import os
 import subprocess
@@ -56,6 +57,24 @@ for engine in ("block", "graph"):
     _, ids = part.search(q, k=5, ef_search=64)
     _, dids = part.search_device(q, k=5, ef_search=64)
     assert (dids.numpy() == ids).all()
+    sh = part.sharded()
+    _, sids = sh.search(q, k=5, ef_search=64, merge="ring")
+    assert (sids == ids).all()
+    if engine == "block":
+        import tempfile
+        from tpu_hnsw_torch import ShardedBlockSearcher
+        with tempfile.TemporaryDirectory() as tmp:
+            part.save(tmp)
+            ld = ShardedBlockSearcher.from_saved(tmp, chunk_bytes=1 << 14,
+                                                 device="cpu")
+            assert (ld.search(q, k=5, ef_search=64)[1] == ids).all()
+from tpu_hnsw_torch.parallel import collectives as C
+d = torch.tensor([[3.0, 1.0, 1.0, 2.0]])
+i = torch.tensor([[7, 5, 5, 6]])
+for merge in (C.gather_merge_topk, C.ring_merge_topk,
+              C.hierarchical_merge_topk):
+    v, j = merge(d, i, 3, dedup=True)
+    assert v.tolist() == [[1.0, 2.0, 3.0]] and j.tolist() == [[5, 6, 7]]
 qps, ids = measure_qps(ivf, q, 5, 0, repeats=1, min_window_s=0.0, probes=8)
 assert qps > 0 and recall_at_k(ids, gt, 5) == 1.0
 bad = sorted(m for m in sys.modules
@@ -91,3 +110,27 @@ def test_ivf_and_partitioned_default_to_the_card(monkeypatch):
     cpu = PartitionedHnswIndex(cfg, 2, engine="block", device="cpu").build(
         np.eye(4, dtype=np.float32))
     assert all(s.device.type == "cpu" for s in cpu.parts)
+    assert cpu.sharded().blocks.device.type == "cpu"
+
+
+def test_stacked_searchers_default_to_the_card(tmp_path):
+    """sharded() serves on its index's device, and from_saved, without a
+    device, on the card: without one it raises instead of running on the
+    CPU."""
+    from tpu_hnsw_torch import (HnswConfig, PartitionedHnswIndex,
+                                ShardedBlockSearcher)
+
+    base = np.random.default_rng(0).normal(size=(64, 4)).astype(np.float32)
+    for engine in ("block", "graph"):
+        idx = PartitionedHnswIndex(HnswConfig(dim=4), 2, engine=engine,
+                                   device="cpu").build(base)
+        assert idx.sharded().device.type == "cpu"
+    idx = PartitionedHnswIndex(HnswConfig(dim=4), 2, engine="block",
+                               device="cpu").build(base)
+    idx.save(str(tmp_path / "p"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ShardedBlockSearcher.from_saved(str(tmp_path / "p"))
+        return
+    assert ShardedBlockSearcher.from_saved(
+        str(tmp_path / "p")).device.type == "cuda"

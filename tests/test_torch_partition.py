@@ -222,14 +222,23 @@ def test_graph_engine_save_load(graph_hash, tmp_path):
         jback.search(q, k=10, ef_search=40, descent_ef=4)[1], want)
 
 
-def test_mesh_modes_refuse():
-    """A mesh build and sharded() are later slices: they raise and name
-    ROADMAP.md queue 1 items 3b and 3c instead of looping on the host."""
+def test_mesh_modes_refuse(hash_block, graph_hash):
+    """sharded() returns the stacked searcher of the engine, serving the
+    host loop's ids over every partition; the mesh build is a later slice
+    and raises, naming ROADMAP.md queue 1 item 3c, instead of looping on
+    the host."""
+    for fx, cls in ((hash_block, PT.ShardedBlockSearcher),
+                    (graph_hash, PT.ShardedHnswSearcher)):
+        base, extra, q, idx, _ = fx
+        sh = idx.sharded()
+        assert isinstance(sh, cls)
+        kw = {} if idx.engine == "block" else {"descent_ef": 4}
+        want = idx.search(q, k=10, ef_search=40, **kw)[1]
+        got = sh.search(q, k=10, ef_search=40, **kw)[1]
+        np.testing.assert_array_equal(got, want)
     idx = PartitionedHnswIndex(HnswConfig(**CFG), P, device="cpu")
-    with pytest.raises(NotImplementedError, match="3b and 3c"):
+    with pytest.raises(NotImplementedError, match="item 3c"):
         idx.build(np.zeros((8, 12), np.float32), mesh="auto")
-    with pytest.raises(NotImplementedError, match="3b and 3c"):
-        idx.sharded()
     with pytest.raises(ValueError, match="engine"):
         PartitionedHnswIndex(HnswConfig(**CFG), P, engine="ivf",
                              device="cpu")

@@ -23,8 +23,10 @@ from tpu_hnsw_torch.index.flat import FlatIndex  # noqa: E402
 from tpu_hnsw_torch.index.hnsw import HnswIndex  # noqa: E402
 from tpu_hnsw_torch.index.ivf import IvfFlatIndex  # noqa: E402
 from tpu_hnsw_torch.ops.bitops import BinaryFlatIndex  # noqa: E402
-from tpu_hnsw_torch.parallel.partition import PartitionedHnswIndex  # noqa: E402
+from tpu_hnsw_torch.parallel.partition import (  # noqa: E402
+    PartitionedHnswIndex, ShardedBlockSearcher, ShardedHnswSearcher)
 
 __all__ = ["BinaryFlatIndex", "BinaryHnswIndex", "BlockHnswIndex",
            "FlatIndex", "HnswConfig", "HnswIndex", "IvfFlatIndex", "Metric",
-           "PartitionedHnswIndex"]
+           "PartitionedHnswIndex", "ShardedBlockSearcher",
+           "ShardedHnswSearcher"]

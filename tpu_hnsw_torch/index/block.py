@@ -77,8 +77,11 @@ def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _slots_of(bids, sel, S: int):
-    """Positions in the ``[Q, p*S]`` expansion -> flat slots (block*S + s)."""
-    return torch.gather(bids, 1, torch.div(sel, S, rounding_mode="floor")) * S + sel % S
+    """Positions in the ``[Q, p*S]`` expansion -> flat slots (block*S + s).
+    A block id -1 (a probe that scans nothing) reads block 0: its rows
+    scored +inf in stage 1, and the caller masks what they give."""
+    blk = torch.gather(bids, 1, torch.div(sel, S, rounding_mode="floor"))
+    return torch.clamp_min(blk, 0) * S + sel % S
 
 
 # ---------------------------------------------------------------------------

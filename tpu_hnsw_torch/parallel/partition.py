@@ -1,6 +1,6 @@
-"""Partitioned HNSW, host-loop mode (port of the first half of
-``tpu_hnsw/parallel/partition.py``): one logical index over P sub-indexes,
-with routed queries and a global top-k merge.
+"""Partitioned HNSW (port of ``tpu_hnsw/parallel/partition.py``): one
+logical index over P sub-indexes, with routed queries and a global top-k
+merge.
 
 - **hash partitioning** (config D): a row lives in partition ``id % P``,
   and queries fan out to every partition;
@@ -11,33 +11,50 @@ with routed queries and a global top-k merge.
   again by the merge).
 
 Sub-indexes are ``HnswIndex`` (``engine="graph"``) or ``BlockHnswIndex``
-(``engine="block"``) on the index's device. :meth:`search` loops over the
-partitions and merges on the host with the reference's ``np.argsort``;
-:meth:`search_device` searches every partition and merges on the device
-(:func:`~tpu_hnsw_torch.ops.topk.mask_duplicate_ids`, then a keyed top-k).
-The stacked mesh searchers and the mesh build are not ported yet
-(ROADMAP.md queue 1, items 3b and 3c).
+(``engine="block"``) on the index's device. Two ways to serve:
+
+- *host loop*: :meth:`PartitionedHnswIndex.search` loops over the
+  partitions and merges on the host with the reference's ``np.argsort``;
+  :meth:`~PartitionedHnswIndex.search_device` searches every partition in
+  turn and merges on the device;
+- *stacked* (:meth:`PartitionedHnswIndex.sharded`): the partitions' state
+  stacked along a leading partition axis. :class:`ShardedBlockSearcher`
+  serves every partition in one batch over that axis (one route GEMM, one
+  stage-1 kernel launch, one rerank), config D's one-card mode;
+  :class:`ShardedHnswSearcher` loops the graph beam over its partitions.
+  With a ``torch.distributed`` process group of R ranks each rank holds
+  P / R partitions and the lists merge through :mod:`.collectives`.
+
+The mesh build (the reference's ``build(mesh=...)``) is not ported yet
+(ROADMAP.md queue 1, item 3c).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_hnsw_torch.config import HnswConfig, Metric, validate_ef_search
-from tpu_hnsw_torch.index.block import BlockHnswIndex
+from tpu_hnsw_torch.index import graph as G
+from tpu_hnsw_torch.index.block import (BlockHnswIndex, _centroid_scores,
+                                        _expand_blocks, _expand_blocks_2stage,
+                                        _score_width)
 from tpu_hnsw_torch.index.hnsw import HnswIndex
+from tpu_hnsw_torch.index.search import _descend_body, _search_layer_body
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import topk as T
+from tpu_hnsw_torch.parallel import collectives as C
 from tpu_hnsw_torch.parallel import kmeans as KM
 from tpu_hnsw_torch.utils.device import entry_device
 
-_MESH_NOT_PORTED = ("the mesh modes of PartitionedHnswIndex are not ported "
-                    "yet (ROADMAP.md queue 1, items 3b and 3c); build "
-                    "without a mesh and serve through search/search_device")
+_MESH_BUILD_NOT_PORTED = (
+    "the mesh build of PartitionedHnswIndex is not ported yet (ROADMAP.md "
+    "queue 1, item 3c); build without a mesh, then serve through sharded()")
 
 
 def _dup_mask_np(ids: np.ndarray) -> np.ndarray:
@@ -144,6 +161,19 @@ class PartitionedHnswIndex:
         self._part_of = np.zeros(0, np.int32)
         self._local_of = np.zeros(0, np.int32)
         self.n = 0
+        # set by ShardedBlockSearcher.release_parts_device_state: the
+        # partitions' device tensors are gone, so per-partition search and
+        # DML must refuse
+        self._released = False
+
+    def _check_live(self, op: str) -> None:
+        if self._released:
+            raise RuntimeError(
+                f"PartitionedHnswIndex.{op}: the partitions' device state "
+                "was released (release_parts_device_state) in favour of the "
+                "stacked ShardedBlockSearcher; serve through the searcher, "
+                "or build or load the index again for per-partition search "
+                "and DML")
 
     def _part_rows(self, p: int) -> int:
         """Searchable rows in partition p (block engine: packed + tail)."""
@@ -161,10 +191,10 @@ class PartitionedHnswIndex:
 
     # ----------------------------------------------------------------- build
     def build(self, data, mesh=None) -> "PartitionedHnswIndex":
-        """Build every partition in turn on the index's device. A mesh is
-        not ported yet and raises."""
+        """Build every partition in turn on the index's device. A mesh
+        build is not ported yet and raises."""
         if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
+            raise NotImplementedError(_MESH_BUILD_NOT_PORTED)
         data = np.asarray(data, np.float32)
         n = data.shape[0]
         ids = np.arange(n)
@@ -241,6 +271,7 @@ class PartitionedHnswIndex:
         """Routed per-partition search and a global top-k merge on the host
         (partition.py:268-307). ``descent_ef`` (graph engine) widens each
         shard's upper-level descent."""
+        self._check_live("search")
         validate_ef_search(max(ef_search, k))
         queries = np.asarray(queries, np.float32)
         route_k = self.route_k if route_k is None else route_k
@@ -286,6 +317,7 @@ class PartitionedHnswIndex:
         Searches all partitions: exact for hash routing, the exhaustive
         bound for centroid routing (use :meth:`search` for routed subsets).
         Returns (distances in operator units, ids) tensors."""
+        self._check_live("search_device")
         if isinstance(queries, torch.Tensor):
             q = queries.to(self.device, torch.float32)
         else:
@@ -325,6 +357,7 @@ class PartitionedHnswIndex:
         A filtered query is final once its k passing results survive one
         further widening. ``predicate(ids) -> bool mask`` runs on the host
         over global ids. Returns (distances, ids), +inf / -1 padded."""
+        self._check_live("search_iterative")
         validate_ef_search(max(ef_search, k))
         queries = np.asarray(queries, np.float32)
         nq = queries.shape[0]
@@ -385,6 +418,7 @@ class PartitionedHnswIndex:
         """INSERT: each row goes to its owning partition (hash: by global
         id; centroid: nearest centroid) and into that sub-index (graph: wave
         insert; block: spill tail). Returns the global ids."""
+        self._check_live("add")
         if not self.parts:
             raise ValueError("build() the partitioned index before add()")
         data = np.asarray(data, np.float32)
@@ -419,6 +453,7 @@ class PartitionedHnswIndex:
     def delete(self, ids) -> None:
         """DELETE: tombstone global ids, and their replicas, in their
         partitions (reclaimed by :meth:`compact`)."""
+        self._check_live("delete")
         ids = np.asarray(ids, np.int64).reshape(-1)
         ids = ids[(ids >= 0) & (ids < len(self._part_of))]
         if not ids.size:
@@ -438,6 +473,7 @@ class PartitionedHnswIndex:
         """VACUUM: repair (graph) or re-pack (block) every partition with
         tombstones or spill-tail rows. Local ids survive, so the global maps
         stay valid; a partition with no live row is left as it is."""
+        self._check_live("compact")
         for sub in self.parts:
             if self.engine == "block":
                 live = sub.n + sub.tail_live
@@ -451,13 +487,22 @@ class PartitionedHnswIndex:
             sub.__dict__.pop("_global_ids_dev", None)
 
     def sharded(self, mesh=None):
-        """The stacked mesh searchers: not ported yet."""
-        raise NotImplementedError(_MESH_NOT_PORTED)
+        """The stacked searcher (partition.py:526-534): a
+        :class:`ShardedBlockSearcher` for the block engine, a
+        :class:`ShardedHnswSearcher` for the graph engine. ``mesh``: None
+        (this process serves all P partitions on the index's device), or a
+        ``torch.distributed`` process group or 1-D ``DeviceMesh`` of R
+        ranks, each serving P / R of them."""
+        self._check_live("sharded")
+        if self.engine == "block":
+            return ShardedBlockSearcher(self, mesh)
+        return ShardedHnswSearcher(self, mesh)
 
     # ----------------------------------------------------------- persistence
     def save(self, path: str) -> None:
         """``partitioned.json``, ``router.npz`` and ``part{p}/`` with each
         sub-index and its ``global_ids.npy``: the reference's layout."""
+        self._check_live("save")
         os.makedirs(path, exist_ok=True)
         for p, sub in enumerate(self.parts):
             sub.save(os.path.join(path, f"part{p}"))
@@ -513,3 +558,541 @@ class PartitionedHnswIndex:
         idx.n = meta["n"]
         idx.parts = parts
         return idx
+
+
+# ---------------------------------------------------------------------------
+# stacked searchers
+# ---------------------------------------------------------------------------
+
+
+def _local_partitions(p: int, mesh) -> tuple:
+    """(process group or None, ranks R, this rank's first partition, P / R)
+    for ``mesh``: None, a process group or a 1-D DeviceMesh."""
+    group, ranks = C.resolve_group(mesh)
+    if p % ranks:
+        raise ValueError(f"n_partitions={p} must be a multiple of the mesh "
+                         f"size {ranks}")
+    local_p = p // ranks
+    me = 0 if group is None else dist.get_rank(group)
+    return group, ranks, me * local_p, local_p
+
+
+def _merge(merge: str):
+    if merge not in ("all_gather", "ring"):
+        raise ValueError("merge must be all_gather|ring")
+    return C.ring_merge_topk if merge == "ring" else C.gather_merge_topk
+
+
+class ShardedHnswSearcher:
+    """Stacked graph-engine partitions (partition.py:598-781): every
+    partition's graph padded to the largest capacity and stacked along a
+    leading partition axis. :meth:`search` runs the descent and the level-0
+    beam on each of this rank's partitions in turn, maps their ids to
+    global ids, masks the partitions a query was not routed to and merges
+    the lists through :mod:`.collectives`."""
+
+    def __init__(self, parent: PartitionedHnswIndex, mesh=None):
+        self.parent = parent
+        self.device = parent.device
+        (self.group, self.ranks, self.first,
+         self.local_p) = _local_partitions(parent.p, mesh)
+        self._assemble()
+
+    def _assemble(self):
+        parts = self.parent.parts
+        mine = parts[self.first:self.first + self.local_p]
+        cap = max(s.graph.cap for s in parts)
+        cap_u = max(s.graph.cap_upper for s in parts)
+        g0, L, dev = parts[0].graph, self.local_p, self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.cap = cap
+        self.vectors = torch.zeros((L, cap + 1, g0.dim),
+                                   dtype=g0.vectors.dtype, device=dev)
+        self.vectors_sq = torch.zeros((L, cap + 1), dtype=torch.float32,
+                                      device=dev)
+        self.nbr0 = torch.full((L, cap + 1, g0.neighbors0.shape[1]), cap,
+                               **i32)
+        self.upn = torch.full((L, cap_u + 1, *g0.upper_nbrs.shape[1:]), cap,
+                              **i32)
+        self.ups = torch.full((L, cap + 1), cap_u, **i32)
+        self.levels = torch.zeros((L, cap + 1), **i32)
+        self.deleted = torch.zeros((L, cap + 1), dtype=torch.bool,
+                                   device=dev)
+        self.gids = torch.full((L, cap + 1), -1, dtype=torch.int64,
+                               device=dev)
+        for lp, sub in enumerate(mine):
+            g = sub.graph
+            c, cu = g.cap, g.cap_upper
+            # sentinels move from the partition's capacity to the common one
+            # (partition.py:645-648); its old trash rows become unreachable
+            self.vectors[lp, :c + 1] = g.vectors
+            self.vectors_sq[lp, :c + 1] = g.vectors_sq
+            self.nbr0[lp, :c + 1] = torch.where(g.neighbors0 == c, cap,
+                                                g.neighbors0)
+            self.upn[lp, :cu + 1] = torch.where(g.upper_nbrs == c, cap,
+                                                g.upper_nbrs)
+            self.ups[lp, :c + 1] = torch.where(g.upper_slot == cu, cap_u,
+                                               g.upper_slot)
+            self.levels[lp, :c + 1] = g.levels
+            self.deleted[lp, :c + 1] = g.deleted
+            gid = torch.from_numpy(np.asarray(sub._global_ids, np.int64))
+            self.gids[lp, :len(gid)] = gid.to(dev)
+        # an empty partition's entry (-1) is clamped to 0: its results map
+        # to -1 through the padded id table (partition.py:675-683)
+        self.entries = [max(s.entry, 0) for s in mine]
+        self.entry_levels = [max(s.entry_level, 0) for s in mine]
+
+    def _graph(self, lp: int) -> G.HnswGraph:
+        return G.HnswGraph(
+            vectors=self.vectors[lp], vectors_sq=self.vectors_sq[lp],
+            neighbors0=self.nbr0[lp], upper_nbrs=self.upn[lp],
+            upper_slot=self.ups[lp], levels=self.levels[lp],
+            deleted=self.deleted[lp])
+
+    def search(self, queries, k: int = 10, ef_search: int = 40,
+               route_k: int | None = None, expand: int = 1,
+               merge: str = "all_gather", descent_ef: int = 1):
+        """Routed search of every local partition (the descent, then the
+        level-0 beam with ``max_steps = 2 ef + 16``) and the merge. Returns
+        (distances in operator units, global ids) numpy, every rank the
+        same."""
+        merge_fn = _merge(merge)
+        cfg = self.parent.cfg
+        queries = np.asarray(queries, np.float32)
+        route_k = self.parent.route_k if route_k is None else route_k
+        # route with the raw queries: the router's centroids are raw
+        routes = self.parent.router.route(queries, route_k)
+        if cfg.metric.needs_normalized:
+            nrm = np.linalg.norm(queries, axis=1, keepdims=True)
+            queries = queries / np.maximum(nrm, 1e-12)
+        ef = max(ef_search, k)
+        q = torch.from_numpy(queries).to(self.device, self.vectors.dtype)
+        pids = self.first + np.arange(self.local_p)
+        selected = torch.from_numpy(
+            (routes[:, :, None] == pids[None, None, :]).any(1)).to(
+                self.device)
+        outs_d, outs_i = [], []
+        for lp in range(self.local_p):
+            g = self._graph(lp)
+            seeds = _descend_body(g, q, self.entries[lp],
+                                  self.entry_levels[lp], 0, cfg.metric,
+                                  descent_ef=descent_ef)
+            pool_d, pool_i = _search_layer_body(
+                g, q, seeds, 0, level0=True, ef=ef, expand=expand,
+                max_steps=2 * ef + 16, metric=cfg.metric, skip_deleted=True,
+                mask_deleted_results=True)
+            d, i = pool_d[:, :k], pool_i[:, :k].long()
+            glob = self.gids[lp][torch.clamp(i, 0, self.cap)]
+            sel = selected[:, lp:lp + 1]
+            glob = torch.where(sel & (i != self.cap), glob, -1)
+            d = torch.where(sel & (glob >= 0), d, torch.inf)
+            outs_d.append(d)
+            outs_i.append(glob)
+        nq = q.shape[0]
+        d = torch.stack(outs_d, 1).reshape(nq, -1)
+        i = torch.stack(outs_i, 1).reshape(nq, -1)
+        d, i = merge_fn(d, i, k, self.group,
+                        dedup=self.parent.has_replicas)
+        return (D.score_to_distance(d, cfg.metric).cpu().numpy(),
+                i.cpu().numpy())
+
+
+class ShardedBlockSearcher:
+    """Stacked block-engine partitions (partition.py:783-1483): every
+    partition's blocks padded to the largest block count ``b`` and stacked
+    along a leading partition axis, block ids stored as global ids.
+
+    One search batches the partition axis: one GEMM of the queries against
+    the ``[P*b, d]`` centroids, viewed as ``[Q, P, b]`` with the padded
+    columns of each partition at +inf and the block engine's route top-k
+    (top-``probes``) per (query, partition); then ONE stage-1
+    ``expand_topr`` launch over the stacked scoring copy ``[P*b, S, dp]``
+    with ``Q*P`` virtual queries (query-major), whose top-r per virtual
+    query is the reference's per-partition stage 1; one gather and f32
+    rerank giving ``[Q, P*k]`` in partition order; the routed mask; the
+    merge through :mod:`.collectives` (local with one process, a
+    collective across ranks).
+
+    Partitions must have empty spill tails (``compact()`` folds them in).
+    The reference's "unstacked" mode, for XLA's 2^31-element buffer limit,
+    is not carried: torch has no such limit.
+    """
+
+    def __init__(self, parent: PartitionedHnswIndex, mesh=None):
+        self.parent = parent
+        self.device = parent.device
+        (self.group, self.ranks, self.first,
+         self.local_p) = _local_partitions(parent.p, mesh)
+        self._assemble()
+
+    def _assemble(self):
+        """Copy this rank's partitions into stacked tensors allocated once
+        (partition.py:822-917): an empty partition is all dead blocks, and
+        a bf16 scoring copy that aliases its blocks stays one tensor."""
+        parts = self.parent.parts
+        for p, sub in enumerate(parts):
+            if sub.tail_n:
+                raise ValueError(
+                    f"partition {p} has {sub.tail_n} uncompacted tail rows; "
+                    "run compact() before sharding")
+        ref = next((s for s in parts if s.n_blocks), None)
+        if ref is None:
+            raise ValueError("every partition is empty")
+        mine = parts[self.first:self.first + self.local_p]
+        b = max(s.n_blocks for s in parts)
+        alias = all(s.blocks_score is s.blocks for s in parts if s.n_blocks)
+        self._alloc(ref.block_size, b, ref.blocks.dtype,
+                    None if alias else ref.blocks_score.dtype,
+                    ref.blocks_score.shape[2], ref.score_scale is not None)
+        for lp, sub in enumerate(mine):
+            B = sub.n_blocks
+            if B == 0:
+                continue
+            self.blocks[lp, :B] = sub.blocks
+            if not alias:
+                self.blocks_score[lp, :B] = sub.blocks_score
+            self.blocks_sq[lp, :B] = sub.blocks_sq
+            self.centroids[lp, :B] = sub.centroids
+            self.centroids_sq[lp, :B] = sub.centroids_sq
+            if sub.score_scale is not None:
+                self.score_scales[lp, :B] = sub.score_scale
+            gmap = torch.from_numpy(
+                np.asarray(sub._global_ids, np.int32)).to(self.device)
+            bi = sub.block_ids.long()
+            self.block_gids[lp, :B] = torch.where(
+                bi >= 0, gmap[torch.clamp(bi, 0, gmap.numel() - 1)], -1)
+        self._finish([s.n_blocks for s in mine],
+                     max(s.n_blocks for s in parts), ref.two_stage,
+                     ref.rerank_width)
+
+    def _alloc(self, S: int, b: int, dtype, score_dtype, dp: int,
+               has_scale: bool) -> None:
+        """Zeroed stacked tensors for this rank's partitions; block ids -1
+        (dead) and scales 1. ``score_dtype`` None aliases the blocks."""
+        L, d, dev = self.local_p, self.parent.cfg.dim, self.device
+        self.blocks = torch.zeros((L, b, S, d), dtype=dtype, device=dev)
+        self.blocks_score = (self.blocks if score_dtype is None else
+                             torch.zeros((L, b, S, dp), dtype=score_dtype,
+                                         device=dev))
+        self.blocks_sq = torch.zeros((L, b, S), dtype=torch.float32,
+                                     device=dev)
+        self.block_gids = torch.full((L, b, S), -1, dtype=torch.int32,
+                                     device=dev)
+        self.centroids = torch.zeros((L, b, d), dtype=dtype, device=dev)
+        self.centroids_sq = torch.zeros((L, b), dtype=torch.float32,
+                                        device=dev)
+        self.score_scales = (torch.ones((L, b), dtype=torch.float32,
+                                        device=dev) if has_scale else None)
+
+    def _finish(self, n_blocks: list, max_blocks: int, two_stage: bool,
+                rerank_width: int) -> None:
+        """Routing masks and offsets of the stacked layout."""
+        L, b = self.blocks.shape[:2]
+        dev = self.device
+        self._max_blocks = max(max_blocks, 1)
+        nb = torch.tensor(n_blocks, dtype=torch.int64, device=dev)
+        # centroid columns at or past a partition's block count score +inf
+        # (block.py:303-304); None when no partition has padded blocks
+        padded = torch.arange(b, device=dev)[None, :] >= nb[:, None]
+        self._padded = padded if min(n_blocks) < b else None
+        self._offsets = (torch.arange(L, device=dev) * b)[None, :, None]
+        self.two_stage = bool(two_stage)
+        self.rerank_width = int(rerank_width)
+        self._router_centroids = None
+
+    # --------------------------------------------------------------- loading
+    @classmethod
+    def from_saved(cls, path: str, mesh=None, chunk_bytes: int = 1 << 27,
+                   device=None) -> "ShardedBlockSearcher":
+        """The stacked state straight from a saved directory (either
+        package's layout; partition.py:919-1213), with bounded device
+        memory: the stacked tensors are allocated once, and each part's
+        ``blocks.bin`` is streamed through ``np.memmap`` one slab of
+        ``chunk_bytes`` (as f32) at a time; each slab's squared norms,
+        centroids and scoring copy (int8 with per-block scales, or bf16) are
+        derived on the device in the same pass. Peak device memory is the
+        serving bytes plus two slabs (the slab in f32 and one temporary).
+        The B axis is padded to whole slabs, so every slab has one shape.
+
+        The searcher's parent is a skeleton of metadata (its partitions
+        hold counts and id maps, no tensors) and is released from the start:
+        serving, ``probes_for_ef`` and ``stats`` work, per-partition search
+        and DML raise."""
+        with open(os.path.join(path, "partitioned.json")) as f:
+            meta = json.load(f)
+        if meta.get("engine", "graph") != "block":
+            raise ValueError("from_saved serves block-engine partitions only")
+        p = int(meta["p"])
+        part_meta = []
+        for i in range(p):
+            with open(os.path.join(path, f"part{i}", "meta.json")) as f:
+                part_meta.append(json.load(f))
+        c = dict(part_meta[0]["config"])
+        c["metric"] = Metric(c["metric"])
+        cfg = HnswConfig(**c)
+        S, d = int(part_meta[0]["block_size"]), cfg.dim
+        parent = PartitionedHnswIndex(
+            cfg, p, router=meta["router"], route_k=meta.get("route_k", 0),
+            engine="block", block_size=S, device=device)
+        if meta["router"] == "centroid":
+            parent.router.centroids = np.load(
+                os.path.join(path, "router.npz"))["centroids"]
+        parent.n = int(meta["n"])
+        parent.multi_assign_frac = float(meta.get("multi_assign_frac", 0.0))
+        parent.has_replicas = bool(meta.get("has_replicas", False))
+        for i, m in enumerate(part_meta):
+            stub = BlockHnswIndex(cfg, block_size=S,
+                                  block_slack=m.get("block_slack", 1.05),
+                                  device=parent.device)
+            stub.n, stub.n_total = int(m["n"]), int(m["n_total"])
+            stub.n_blocks = int(m["n_blocks"])
+            stub.score_dtype = m.get("score_dtype", "int8")
+            gp = os.path.join(path, f"part{i}", "global_ids.npy")
+            stub._global_ids = (np.load(gp) if os.path.exists(gp) else
+                                np.arange(stub.n_total, dtype=np.int32))
+            parent.parts.append(stub)
+        parent._released = True
+
+        self = cls.__new__(cls)
+        self.parent, self.device = parent, parent.device
+        (self.group, self.ranks, self.first,
+         self.local_p) = _local_partitions(p, mesh)
+        b_max = max(max(s.n_blocks for s in parent.parts), 1)
+        slab = max(1, min(chunk_bytes // max(S * d * 4, 1), b_max))
+        b_pad = -(-b_max // slab) * slab
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        score = parent.parts[0].score_dtype
+        score_dtype = torch.int8 if score == "int8" else torch.bfloat16
+        dp = _score_width(d, score_dtype)
+        alias = score_dtype == torch.bfloat16 == dtype and dp == d
+        self._alloc(S, b_pad, dtype, None if alias else score_dtype, dp,
+                    score == "int8")
+        cents = torch.zeros((self.local_p, b_pad, d), dtype=torch.float32,
+                            device=self.device)
+        for lp in range(self.local_p):
+            i = self.first + lp
+            part = os.path.join(path, f"part{i}")
+            z = np.load(os.path.join(part, "blocks.npz"))
+            bb = part_meta[i].get("blocks_bin")
+            if bb is not None:  # raw blob: read one slab at a time
+                raw = np.memmap(os.path.join(part, "blocks.bin"),
+                                dtype=np.dtype(bb["dtype"]), mode="r",
+                                shape=tuple(bb["shape"]))
+            else:  # the reference's older layout: blocks inside the npz
+                raw = z["blocks"]
+            bids = z["block_ids"]
+            gmap = np.asarray(parent.parts[i]._global_ids, np.int32)
+            B = raw.shape[0]
+            if B:
+                self.block_gids[lp, :B] = torch.from_numpy(np.where(
+                    bids >= 0, gmap[np.clip(bids, 0, len(gmap) - 1)],
+                    -1).astype(np.int32)).to(self.device)
+            for s0 in range(0, B, slab):
+                self._install_slab(lp, s0, raw[s0:s0 + slab],
+                                   bids[s0:s0 + slab] >= 0, slab, cents)
+        self.centroids.copy_(cents)
+        self.centroids_sq.copy_((cents * cents).sum(-1))
+        del cents
+        ref = parent.parts[0]
+        self._finish([parent.parts[self.first + lp].n_blocks
+                      for lp in range(self.local_p)], b_max, ref.two_stage,
+                     ref.rerank_width)
+        return self
+
+    def _install_slab(self, lp: int, s0: int, raw: np.ndarray,
+                      live: np.ndarray, slab: int, cents) -> None:
+        """One slab of saved blocks into partition ``lp`` from block ``s0``:
+        the rows (dead rows zero), their squared norms, the f32 centroids
+        and the scoring copy, as ``_set_blocks`` and ``_make_score_copy``
+        derive them. A short last slab is zero-padded to ``slab`` blocks.
+        Device memory: the slab in f32 and one slab-sized temporary."""
+        nb = raw.shape[0]
+        raw = np.array(raw)  # the slab read into host memory, writable
+        if raw.dtype == np.uint16:  # bf16 saved as its bits
+            host = torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16)
+        else:
+            host = torch.from_numpy(raw)
+        alive = torch.from_numpy(np.ascontiguousarray(live))
+        if nb < slab:
+            host = torch.cat([host, host.new_zeros((slab - nb,
+                                                    *host.shape[1:]))])
+            alive = torch.cat([alive, alive.new_zeros((slab - nb,
+                                                       alive.shape[1]))])
+        sl = slice(s0, s0 + slab)
+        alive = alive.to(self.device)
+        sf = host.to(self.device).float()
+        sf.masked_fill_(~alive[:, :, None], 0.0)
+        self.blocks[lp, sl] = sf
+        self.blocks_sq[lp, sl] = (sf * sf).sum(-1)
+        counts = torch.clamp_min(alive.float().sum(1), 1.0)
+        cents[lp, sl] = sf.sum(1) / counts[:, None]
+        d = sf.shape[2]
+        if self.score_scales is not None:
+            # quantised in place: the slab and one temporary at most
+            scl = torch.clamp_min(sf.abs().amax(dim=(1, 2)), 1e-30) / 127.0
+            sf.div_(scl[:, None, None]).round_().clamp_(-127, 127)
+            self.blocks_score[lp, sl, :, :d] = sf  # integral: cast exact
+            self.score_scales[lp, sl] = scl
+        elif self.blocks_score is not self.blocks:
+            self.blocks_score[lp, sl, :, :d] = sf
+
+    def release_parts_device_state(self) -> None:
+        """Drop the partitions' own device tensors once the stacked state
+        exists: they are the same bytes twice (partition.py:1215-1230). The
+        parent keeps its host metadata; its per-partition search, DML and
+        save raise afterwards."""
+        for sub in self.parent.parts:
+            for name in ("blocks", "blocks_score", "blocks_sq", "block_ids",
+                         "centroids", "centroids_sq", "score_scale", "tail",
+                         "tail_sq", "tail_ids", "centroid_index",
+                         "_filter_cache", "_global_ids_dev"):
+                if hasattr(sub, name):
+                    setattr(sub, name, None)
+        self.parent._released = True
+
+    # ---------------------------------------------------------------- search
+    def probes_for_ef(self, ef_search: int) -> int:
+        """Blocks a partition probes for an ef (the block engine's
+        ``ROWS_PER_EF`` mapping, partition.py:1266-1277); partitions with
+        fewer blocks probe padded ones, which hold nothing."""
+        ref = next(s for s in self.parent.parts if s.n_blocks)
+        p = math.ceil(ref.ROWS_PER_EF * ef_search / ref.block_size)
+        p += int((ref.block_slack - 1) * p + 0.5)
+        return max(1, min(p, self._max_blocks))
+
+    def _queries(self, queries) -> torch.Tensor:
+        """Raw f32 queries on the device (a tensor is not validated)."""
+        if isinstance(queries, torch.Tensor):
+            q = queries.to(self.device, torch.float32)
+            q = q[None] if q.ndim == 1 else q
+        else:
+            q = np.asarray(queries, np.float32)
+            q = q[None] if q.ndim == 1 else q
+            if not np.isfinite(q).all():
+                raise ValueError("NaN or infinity values are not allowed")
+            q = torch.from_numpy(q).to(self.device)
+        if q.shape[1] != self.parent.cfg.dim:
+            raise ValueError(f"expected {self.parent.cfg.dim} dimensions, "
+                             f"not {q.shape[1]}")
+        return q.contiguous()
+
+    def _selected(self, qraw, route_k: int):
+        """``[Q, P/R]`` bool: the local partitions each query is routed to,
+        computed on the device (partition.py:1232-1264); None when every
+        query visits every partition (hash routing, or route_k >= P)."""
+        router, p = self.parent.router, self.parent.p
+        r = min(route_k or p, p)
+        if not isinstance(router, CentroidRouter) or r >= p:
+            return None
+        if self._router_centroids is None:
+            self._router_centroids = torch.from_numpy(
+                np.asarray(router.centroids, np.float32)).to(self.device)
+        sc = D.pairwise_scores(qraw, self._router_centroids, Metric.L2)
+        routes = T.topk_smallest_by_index(sc, r)[1]
+        hit = torch.zeros(sc.shape, dtype=torch.bool, device=self.device)
+        hit.scatter_(1, routes, True)
+        return hit[:, self.first:self.first + self.local_p]
+
+    def _route(self, q, q_sq, selected, probes: int) -> torch.Tensor:
+        """``[Q*(P/R), probes]`` stacked block ids, query-major: the probes
+        nearest blocks of each (query, local partition) pair from one GEMM
+        against the ``[(P/R)*b, d]`` centroids, offset into the stacked
+        table; -1 where the query is not routed to the partition."""
+        L, b = self.blocks.shape[:2]
+        nq = q.shape[0]
+        sc = _centroid_scores(self.centroids.view(L * b, -1),
+                              self.centroids_sq.view(-1), q, q_sq,
+                              self.parent.cfg.metric)
+        sc = sc.view(nq, L, b)
+        if self._padded is not None:
+            sc = torch.where(self._padded, torch.inf, sc)
+        # the block engine's own route top-k (_route_exact, block.py:305):
+        # lax.top_k's order up to 256 blocks, a radix top-k above (the
+        # reference's approx_min_k orders ties arbitrarily there too)
+        bids = T.topk_smallest_fast(sc, probes)[1] + self._offsets
+        if selected is not None:  # an unrouted partition scans no block
+            bids = torch.where(selected[:, :, None], bids, -1)
+        return bids.view(nq * L, probes)
+
+    def _fan_out(self, q, selected, *, k: int, probes: int):
+        """Every local partition's top-k for every query in one batch:
+        ``[Q, (P/R)*k]`` raw scores and global ids, partition-major."""
+        metric = self.parent.cfg.metric
+        L, b, S = self.blocks.shape[:3]
+        nq = q.shape[0]
+        q_sq = D.squared_norms(q)
+        bids = self._route(q, q_sq, selected, probes)
+        qv = q.repeat_interleave(L, 0)
+        qv_sq = q_sq.repeat_interleave(L, 0)
+        gids = self.block_gids.view(L * b, S)
+        if self.two_stage:
+            vals, ids = _expand_blocks_2stage(
+                self.blocks_score.view(L * b, S, -1),
+                self.blocks_sq.view(L * b, S), gids,
+                self.blocks.view(L * b * S, -1), qv, qv_sq, bids, k=k,
+                rerank=max(self.rerank_width, k), metric=metric,
+                score_scale=(None if self.score_scales is None
+                             else self.score_scales.view(-1)))
+        else:
+            vals, ids = _expand_blocks(
+                self.blocks.view(L * b, S, -1), self.blocks_sq.view(L * b, S),
+                gids, qv, qv_sq, bids, k=k, metric=metric)
+        vals, ids = vals.reshape(nq, L * k), ids.reshape(nq, L * k).long()
+        if selected is not None:
+            vals = torch.where(selected.repeat_interleave(k, 1), vals,
+                               torch.inf)
+            ids = torch.where(torch.isfinite(vals), ids, -1)
+        return vals, ids
+
+    def search_device(self, queries, k: int = 10, ef_search: int = 40,
+                      probes: int | None = None, route_k: int | None = None,
+                      merge: str = "all_gather"):
+        """Routed stacked search and the merge (partition.py:1396-1433):
+        (raw scores ``[Q, k]`` ascending, global ids, -1 where missing)
+        tensors on the device, every rank the same. Routing uses the raw
+        queries; scoring normalises them where the metric needs it."""
+        validate_ef_search(max(ef_search, 1))
+        merge_fn = _merge(merge)
+        metric = self.parent.cfg.metric
+        if probes is None:
+            probes = self.probes_for_ef(max(ef_search, k))
+        probes = max(1, min(int(probes), self.blocks.shape[1]))
+        route_k = self.parent.route_k if route_k is None else route_k
+        qraw = self._queries(queries)
+        selected = self._selected(qraw, route_k)
+        q = D.l2_normalize(qraw) if metric.needs_normalized else qraw
+        sc, ids = self._fan_out(q, selected, k=k, probes=probes)
+        return merge_fn(sc, ids, k, self.group,
+                        dedup=self.parent.has_replicas)
+
+    def search(self, queries, k: int = 10, ef_search: int = 40,
+               probes: int | None = None, route_k: int | None = None,
+               merge: str = "all_gather"):
+        """:meth:`search_device` as numpy: (distances in operator units,
+        global ids)."""
+        sc, ids = self.search_device(queries, k=k, ef_search=ef_search,
+                                     probes=probes, route_k=route_k,
+                                     merge=merge)
+        return (D.score_to_distance(sc, self.parent.cfg.metric).cpu().numpy(),
+                ids.cpu().numpy())
+
+    def stats(self) -> dict:
+        """Bytes of the stacked state on this rank (partition.py:
+        1450-1483); an aliased bf16 scoring copy counts once."""
+        comp = {name: getattr(self, name).numel()
+                * getattr(self, name).element_size()
+                for name in ("blocks", "blocks_score", "blocks_sq",
+                             "block_gids", "centroids", "centroids_sq")}
+        if self.blocks_score is self.blocks:
+            comp["blocks_score"] = 0
+        total = sum(comp.values())
+        n, p = self.parent.n, self.parent.p
+        return {
+            "n": n,
+            "partitions": p,
+            "mesh_devices": self.ranks,
+            "memory_bytes": comp,
+            "memory_total_bytes": total,
+            "bytes_per_element": round(total * self.ranks / max(n, 1), 1),
+            "bytes_per_element_per_device": round(total / max(n / p, 1), 1),
+        }
