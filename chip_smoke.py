@@ -8,9 +8,9 @@ plain version):
 1. require CUDA, then print the card (``nvidia-smi`` name and power limit);
 2. build both kernel libraries (``expand_score``, ``hamming_scan``) from
    ``tpu_hnsw_torch/csrc`` with two ``nvcc`` processes started together;
-   then the three merges of ``parallel/collectives.py`` under a one-rank
-   NCCL group (a file rendezvous on the loopback device), each equal to
-   the local merge;
+   once the host data is made (below), the three merges of
+   ``parallel/collectives.py`` under a one-rank NCCL group (a file
+   rendezvous on the loopback device), each equal to the local merge;
 3. hold both entries of ``csrc/expand_score.cu`` against their plain
    PyTorch versions at main-path shapes (Q=1024, S=256, d=128, B=4102,
    uniform random bids): ``expand_score`` at p in {8, 32} in f32, bf16 and
@@ -57,7 +57,29 @@ plain version):
    serving peak beside the host loop's, and ``expand_topr`` at the stacked
    shape (8,192 virtual queries over the 41,016 stacked blocks) against
    its plain version and timed;
-8. the binary path at full width: ``binary_quantize`` of
+8. the lockstep build (``parallel/mesh_build.py``): 8 hash partitions of
+   the graph engine over the first 200,000 of the 1M x 128 rows built with
+   ``build(mesh="auto")`` against each partition's rows built by
+   ``HnswIndex(capacity=25_000).build(mode="wave")`` in turn (every graph
+   tensor, entry and level equal), both times; a profiled steady wave of
+   each; recall@10 at ef_search 64 through ``search`` and ``sharded()``;
+   the sequential bulk build's time for scale; then the lockstep build of
+   all 1M rows (dense-scan seeding past 4,096 upper elements a
+   partition), its time and recall@10;
+9. the sparse cell of ``scripts/config_sparse.py``: ``synthetic_splade(
+   1_000_000, vocab=30522, nnz=128, n_queries=1024, seed=13)`` and
+   ``SparseHnswIndex(metric="ip", engine="block", proj_dim=256,
+   block_size=256, seed=0)``: the exact ``SparseFlatIndex(IP)`` oracle over
+   every row, the build by stage, the projection table on the card against
+   its CPU rows, ``expand_topr`` (r 50, 100) and ``expand_score`` (rerank_k
+   200) at the path's routed shapes against their plain versions and timed;
+   then the path with its counters at 0: recall@10 and QPS at rerank_k 50,
+   100 and 200 beside the reference's recall curve
+   (``benchmarks/config_sparse.json``), exact distances, peak memory, a
+   profiled call; then the first 100,000 rows (a cut of scale): the graph
+   engine (IP), the block engine in L2 and cosine, add of rows with unseen
+   coordinates, delete, compact and save/load;
+10. the binary path at full width: ``binary_quantize`` of
    ``synthetic_clustered(1_000_000, 1536, n_queries=4096, seed=42)`` (the
    shape of dbpedia-entities-openai-1M, binary-quantized as pgvector's
    README does). Both hamming entries against their plain versions,
@@ -78,17 +100,24 @@ plain version):
    copy (hamming L2, jaccard cosine; masked and not), and stage 1 timed at
    the bids each index's own routing gives the first 1024 queries; a
    ``torch.profiler`` breakdown of one 1024-query hamming search;
-9. print each phase's seconds, the kernel table as one JSON line (launches
-   per path, times, bounds), the card line, and last ``{"ok": true,
-   "device": {...}}``.
+11. print each phase's seconds, the kernel table as one JSON line
+    (launches per path, times, bounds), the card line, and last ``{"ok":
+    true, "device": {...}}``.
+
+The host data of config D, the sparse cell and the binary path (about 130
+s of numpy) is made by three spawned processes while the kernels build
+and the 1M x 128 rows are made; they are joined before the first timed
+phase (``HostData``) and stopped on exit.
 
 Each path's kernel launch counters are set to 0 just before it and read
 just after it; launches made to compare a kernel with its plain version
 are not counted. Stage 1 of the block, lifecycle, graph-routed,
-partitioned (centroid, config D and stacked config D) and binary paths
-must launch ``expand_topr`` (stacked config D once a chunk); the
-lifecycle's filtered ``search_iterative``
-widens past the fused limit and must launch ``expand_score`` too. A
+partitioned (centroid, config D and stacked config D), sparse and binary
+paths must launch ``expand_topr`` (stacked config D once a chunk); the
+lifecycle's filtered ``search_iterative`` and the sparse path at rerank_k
+200 widen past the fused limit and must launch ``expand_score`` too. The
+lockstep build launches no kernel (the graph engine is torch ops); its
+count is read all the same. A
 kernel's ``launches`` in the JSON line sums its paths'. ``bound_ms`` is
 the larger of the bytes a call must move (each input read once, each
 output written once) over 3.35 TB/s and its operations over the data
@@ -1291,17 +1320,12 @@ def true_hamming(qp, xp, ids: np.ndarray) -> np.ndarray:
     return BO.hamming_distance(qp[:, None, :], rows).cpu().numpy()
 
 
-def binary_phase(card: str, dev: torch.device) -> dict:
+def binary_phase(card: str, dev: torch.device, data) -> dict:
     """The binary path at 1M x 1536 bits: kernel checks, the flat oracle,
-    the hamming and jaccard indexes."""
+    the hamming and jaccard indexes. ``data``:
+    ``HostData.take("binary")``."""
     out = {}
-    t0 = time.perf_counter()
-    base, queries = synthetic_clustered(N, BIN_DIM, n_queries=NQ,
-                                        seed=DATA_SEED)
-    bits = binary_quantize(base).numpy()
-    qbits = binary_quantize(queries).numpy()
-    del base, queries
-    out["data_s"] = time.perf_counter() - t0
+    (bits, qbits), out["data_s"] = data
     print(f"binary data {bits.shape} in {out['data_s']:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     bits_dev = torch.from_numpy(bits).to(dev)
@@ -1723,7 +1747,7 @@ def config_d_data():
     return base, queries
 
 
-def config_d_phase(card: str, dev: torch.device) -> dict:
+def config_d_phase(card: str, dev: torch.device, data) -> dict:
     """Config D at full width: 10M x 96 inner product over 8 hash
     partitions of BlockHnswIndex (block 256) on one card. The oracle over
     all 10M rows; expand_topr at d=96 IP held to its plain version before
@@ -1731,11 +1755,9 @@ def config_d_phase(card: str, dev: torch.device) -> dict:
     to 0: build, recall@10 over the probe grid to the first point >= 0.95,
     QPS there through measure_qps (1024-query chunks), launches per chunk,
     a profiled chunk, host-loop ids against search_device's, peak
-    memory."""
+    memory. ``data``: ``HostData.take("config_d")``."""
     out = {}
-    t0 = time.perf_counter()
-    base, queries = config_d_data()
-    out["data_s"] = time.perf_counter() - t0
+    (base, queries), out["data_s"] = data
     qdev = torch.from_numpy(queries).to(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2061,19 +2083,511 @@ def collectives_phase(card: str, dev: torch.device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# sparse vectors: the 1M SPLADE-shaped cell
+# ---------------------------------------------------------------------------
+
+SP_N, SP_VOCAB, SP_NNZ, SP_NQ, SP_SEED = 1_000_000, 30522, 128, 1024, 13
+SP_RERANK = (50, 100, 200)  # scripts/config_sparse.py:91-108
+# benchmarks/config_sparse.json: the reference's recall@10 at each rerank_k
+# (its projections ran at the TPU's default einsum precision)
+SP_REFERENCE_RECALL = {50: 0.3941, 100: 0.5073, 200: 0.6160}
+SP_SUB_N = 100_000  # the depth cut of the engine and lifecycle checks
+SP_ADD = 1000
+
+
+def sparse_exact_ip(base, queries, ids: np.ndarray):
+    """(exact inner products in float64, the sum of |products|) of each
+    query with its returned ids, from the original coordinates on the
+    host: independent of the index's rank space, store and rerank."""
+    qd = np.zeros((queries.n, queries.dim), np.float64)
+    rows = np.repeat(np.arange(queries.n), queries.nnz_max)
+    ok = queries.indices.ravel() >= 0
+    qd[rows[ok], queries.indices.ravel()[ok]] = queries.values.ravel()[ok]
+    ci = base.indices[np.clip(ids, 0, None)]          # [Q, k, K]
+    cv = base.values[np.clip(ids, 0, None)].astype(np.float64)
+    g = qd[np.arange(queries.n)[:, None, None], np.clip(ci, 0, None)]
+    g = np.where(ci >= 0, g, 0.0)
+    return (g * cv).sum(-1), np.abs(g * cv).sum(-1)
+
+
+def sparse_distances_exact(d, ids, base, queries, what: str) -> float:
+    """Returned IP distances (``<#>``, the negative inner product) against
+    the float64 products of sparse_exact_ip: f32 sums of 128 products stay
+    within 1e-5 of the sum of |products|. Returns the largest error."""
+    ip, mag = sparse_exact_ip(base, queries, ids)
+    assert (ids >= 0).all(), f"{what}: a missing id"
+    err = np.abs(d.astype(np.float64) + ip)
+    assert (err <= 1e-5 * mag + 1e-6).all(), \
+        f"{what}: distances differ from the exact products by {err.max()}"
+    return float(err.max())
+
+
+def sparse_phase(card: str, dev: torch.device, data) -> dict:
+    """The sparse cell of scripts/config_sparse.py:25-38,91-108 at full
+    width: synthetic_splade(1M, vocab 30522, nnz 128, 1024 queries, seed
+    13), SparseHnswIndex(ip, block engine, proj_dim 256, block 256, seed
+    0). The exact oracle over all rows, the build by stage, R on the card
+    against its CPU rows, both expand entries at the path's shapes against
+    their plain versions; then the path with its launch counters set to 0:
+    recall@10 and QPS at rerank_k 50, 100 and 200 (host input and output),
+    exact distances, peak memory, a profiled call. Then the first 100,000
+    rows: the graph engine (IP), the block engine in L2 and cosine, add of
+    rows with unseen coordinates, delete, compact and save/load.
+    ``data``: ``HostData.take("sparse")``."""
+    from tpu_hnsw_torch import SparseFlatIndex, SparseHnswIndex
+    from tpu_hnsw_torch.index.sparse_ann import proj_rows
+
+    out = {}
+    (base, queries), out["data_s"] = data
+    out["observed_vocab"] = int(len(base.vocab))
+    print(f"sparse data: {SP_N} x {SP_VOCAB} (nnz {SP_NNZ}), "
+          f"{SP_NQ} queries, observed vocabulary {out['observed_vocab']}: "
+          f"{out['data_s']:.1f} s (numpy, host) [{card}]", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flat = SparseFlatIndex(base, Metric.IP, device=dev)
+    torch.cuda.synchronize()
+    out["oracle_upload_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, gt = flat.search(queries, k=10)
+    out["oracle_s"] = time.perf_counter() - t0
+    out["oracle_peak_GB"] = peak_gb()
+    print(f"sparse oracle SparseFlatIndex(IP) over {SP_N} rows: upload "
+          f"{out['oracle_upload_s']:.3f} s, {SP_NQ} queries "
+          f"{out['oracle_s']:.3f} s (row chunks densified onto the "
+          f"vocabulary, f32 GEMM, running top-k), peak "
+          f"{out['oracle_peak_GB']:.2f} GB [{card}]", flush=True)
+    del flat
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    idx = SparseHnswIndex(metric="ip", engine="block", proj_dim=256,
+                          block_size=256, seed=0, device=dev).build(base)
+    out["build"] = dict(idx.build_stats)
+    out["build_peak_GB"] = peak_gb()
+    st = idx.stats()
+    out["store_bytes"] = st["sparse_store_bytes"]
+    out["block_bytes"] = st["memory_total_bytes"]
+    print(f"sparse build: {json.dumps(out['build'])}, store "
+          f"{out['store_bytes'] / 1e9:.3f} GB, blocks "
+          f"{out['block_bytes'] / 1e9:.3f} GB, R "
+          f"{st['sparse_proj_table_bytes'] / 1e6:.1f} MB, peak "
+          f"{out['build_peak_GB']:.2f} GB [{card}]", flush=True)
+
+    # R on the card against the same rows drawn on the CPU
+    ranks = torch.arange(0, len(idx._vocab), 7)
+    r_err = (idx._R[ranks.to(dev)].cpu()
+             - proj_rows(0, ranks, 256)).abs().max().item()
+    assert r_err <= 1e-6, f"R on the card differs from the CPU by {r_err}"
+    out["R_max_abs_err"] = r_err
+    print(f"projection table on the card: {len(idx._vocab)} x 256, every "
+          f"7th row within {r_err:.3g} of its CPU rows [{card}]", flush=True)
+
+    # both expand entries at this path's shapes, before the path runs
+    inner = idx.inner
+    qproj = idx._project(*idx._upload_rows(
+        queries, idx._rank_of(queries.indices, extend=False))[:2])
+    cscale = (inner.blocks_sq.max() + (qproj * qproj).sum(1).max()).item()
+    topr, timings, variants = [], [], []
+    probes = {rk: inner.probes_for_ef(max(40, rk)) for rk in SP_RERANK}
+    for rk in (50, 100):
+        args, kw = routed_args(inner, qproj, probes[rk])
+        topr.extend(topr_variants(args, kw, "int8", card, cscale,
+                                  f"sparse 1M x 256, routed bids p="
+                                  f"{probes[rk]}", rs=(rk,),
+                                  nqs=(SP_NQ,)))
+        timings.append(stage1_timing(args, kw, rk, card,
+                                     f"sparse 1M x 256 index, routed bids "
+                                     f"p={probes[rk]}"))
+    args, kw = routed_args(inner, qproj, probes[200])
+    variants.append(expand_variant(
+        args, kw, "int8", Metric.IP, card, cscale,
+        shape=dict(Q=SP_NQ, p=probes[200], S=256, d=256,
+                   B=inner.n_blocks, of="sparse 1M x 256, routed bids")))
+    del args, kw, qproj
+
+    X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    curve = []
+    for rk in SP_RERANK:
+        before = expand_launches()
+        d, ids = idx.search(queries, k=10, rerank_k=rk)
+        grew = {k: v - before[k] for k, v in expand_launches().items()}
+        want = "expand_score" if rk > X.TOPR_MAX_R else "expand_topr"
+        assert grew[want] > 0, f"rerank_k {rk} never launched {want}"
+        err = sparse_distances_exact(d, ids, base, queries,
+                                     f"rerank_k {rk}")
+        rec = {"rerank_k": rk, "probes": probes[rk],
+               "recall": recall_at_k(ids, gt, 10),
+               "reference_recall": SP_REFERENCE_RECALL[rk],
+               "launches": grew, "max_dist_err": err}
+        idx.search(queries, k=10, rerank_k=rk)  # warm-up
+        windows = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            idx.search(queries, k=10, rerank_k=rk)
+            windows.append(SP_NQ / (time.perf_counter() - t0))
+        rec["qps"], rec["qps_windows"] = float(np.median(windows)), windows
+        curve.append(rec)
+        print(f"sparse rerank_k {rk} (probes {probes[rk]}): recall@10 "
+              f"{rec['recall']:.4f} (the reference's, from "
+              f"benchmarks/config_sparse.json: {rec['reference_recall']}), "
+              f"QPS {rec['qps']:.1f} (median of 9 windows of {SP_NQ} "
+              f"queries, host in and out; min {min(windows):.1f}, max "
+              f"{max(windows):.1f}), launches {json.dumps(grew)}, "
+              f"distances exact to {err:.3g} [{card}]", flush=True)
+    launches = expand_launches()
+    out["curve"] = curve
+    out["peak_GB"] = peak_gb()
+    print(f"sparse path peak device memory {out['peak_GB']:.2f} GB, "
+          f"launches {json.dumps(launches)} [{card}]", flush=True)
+    breakdown = device_breakdown(
+        lambda: idx.search(queries, k=10, rerank_k=100), card,
+        f"sparse path, one {SP_NQ}-query search at rerank_k 100")
+    del idx
+    torch.cuda.empty_cache()
+    out["sub"] = sparse_sub_phase(base, queries, card, dev)
+    return {"numbers": out, "launches": launches, "topr": topr,
+            "timings": timings, "variants": variants,
+            "breakdown": breakdown}
+
+
+def sparse_sub_phase(base, queries, card: str, dev: torch.device) -> dict:
+    """The first SP_SUB_N rows: the graph engine (IP) and the block engine
+    in L2 and cosine against their oracles; on the L2 index, add of rows
+    with coordinates the index has not seen, delete, compact and
+    save/load."""
+    from tpu_hnsw_torch import SparseFlatIndex, SparseHnswIndex, SparseVecs
+
+    out = {}
+    sub = SparseVecs(base.indices[:SP_SUB_N], base.values[:SP_SUB_N],
+                     SP_VOCAB)
+    held = SparseVecs(base.indices[SP_SUB_N:SP_SUB_N + SP_ADD],
+                      base.values[SP_SUB_N:SP_SUB_N + SP_ADD], SP_VOCAB)
+    gts = {m: SparseFlatIndex(sub, Metric(m), device=dev).search(
+        queries, k=10) for m in ("ip", "l2", "cosine")}
+    indexes = {}
+    for engine, metric in (("graph", "ip"), ("block", "l2"),
+                           ("block", "cosine")):
+        t0 = time.perf_counter()
+        ix = SparseHnswIndex(metric=metric, engine=engine, proj_dim=256,
+                             seed=0, device=dev).build(sub)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gd, gt = gts[metric]
+        d, ids = ix.search(queries, k=10, rerank_k=100)
+        ok = ids >= 0
+        rec = {"build_s": build_s, "recall": recall_at_k(ids, gt, 10)}
+        ip, mag = sparse_exact_ip(sub, queries, ids)
+        if metric == "ip":
+            want = -ip
+        else:
+            q_sq = (queries.values.astype(np.float64) ** 2).sum(1)
+            c_sq = (sub.values[np.clip(ids, 0, None)].astype(np.float64)
+                    ** 2).sum(-1)
+            want = (np.sqrt(np.maximum(q_sq[:, None] + c_sq - 2 * ip, 0))
+                    if metric == "l2" else
+                    1 - ip / np.sqrt(q_sq[:, None] * c_sq))
+        err = np.abs(d.astype(np.float64) - want)
+        rec["max_dist_err"] = float(err.max())
+        assert ok.all() and err.max() <= 1e-3, (engine, metric, rec)
+        out[f"{engine}_{metric}"] = rec
+        indexes[metric] = ix
+        print(f"sparse {engine} {metric} over the first {SP_SUB_N} rows: "
+              f"build {build_s:.3f} s, recall@10 {rec['recall']:.4f} at "
+              f"rerank_k 100, distances within {err.max():.3g} of the exact "
+              f"ones [{card}]", flush=True)
+    del indexes["ip"], indexes["cosine"]
+    ix = indexes["l2"]
+
+    # add: rows holding coordinates the index has not seen
+    fresh = np.setdiff1d(np.arange(SP_VOCAB), ix._vocab)
+    assert len(fresh), "every coordinate already seen"
+    ai, av = held.indices.copy(), held.values.copy()
+    ai[:, 0] = fresh[np.arange(SP_ADD) % len(fresh)]
+    order = np.argsort(np.where(ai < 0, SP_VOCAB, ai), axis=1, kind="stable")
+    add = SparseVecs(np.take_along_axis(ai, order, 1),
+                     np.take_along_axis(av, order, 1), SP_VOCAB)
+    V0, R0 = len(ix._vocab), ix._R.clone()
+    t0 = time.perf_counter()
+    new = ix.add(add)
+    out["add_s"] = time.perf_counter() - t0
+    assert len(ix._vocab) > V0 and torch.equal(ix._R[:V0], R0), \
+        "R is not prefix-stable"
+    _, got = ix.search(add, k=1, rerank_k=50)
+    out["added_found"] = float((got[:, 0] == new).mean())
+    assert out["added_found"] >= 0.99, out["added_found"]
+    # delete the queries' best hits, then compact
+    _, ids = ix.search(queries, k=10, rerank_k=100)
+    victims = np.unique(ids[:, :2])
+    t0 = time.perf_counter()
+    ix.delete(victims)
+    out["delete_s"] = time.perf_counter() - t0
+    _, ids = ix.search(queries, k=10, rerank_k=100)
+    assert not np.isin(ids, victims).any(), "a deleted id came back"
+    t0 = time.perf_counter()
+    ix.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    d1, i1 = ix.search(queries, k=10, rerank_k=100)
+    assert not np.isin(i1, victims).any(), "a deleted id came back"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ix.save(tmp)
+        back = SparseHnswIndex.load(tmp, device=dev)
+        out["save_load_s"] = time.perf_counter() - t0
+    d2, i2 = back.search(queries, k=10, rerank_k=100)
+    assert np.array_equal(i1, i2) and np.array_equal(d1, d2), "save/load"
+    print(f"sparse lifecycle (block l2, {SP_SUB_N} rows): add {SP_ADD} rows "
+          f"with {len(ix._vocab) - V0} unseen coordinates "
+          f"{out['add_s']:.3f} s (R prefix-stable, {out['added_found']:.4f} "
+          f"find themselves), delete {len(victims)} {out['delete_s']:.3f} s "
+          f"(gone), compact {out['compact_s']:.3f} s (gone), save+load "
+          f"{out['save_load_s']:.3f} s: identical ids and distances "
+          f"[{card}]", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the lockstep build of graph partitions
+# ---------------------------------------------------------------------------
+
+MESH_N, MESH_P = 200_000, 8
+MESH_BIG_N = 1_000_000
+
+
+def mesh_wave_breakdowns(rows: np.ndarray, cfg, card: str,
+                         dev: torch.device, warm: int = 8192,
+                         wave: int = 1024) -> dict:
+    """One profiled steady-state wave (``wave`` rows a partition): the
+    lockstep step over the 8 partitions beside one sequential wave of one
+    partition. Both graphs are first grown to ``warm`` rows; each call of
+    the profiled function inserts the next wave."""
+    from tpu_hnsw_torch.parallel import mesh_build as MB
+
+    P, per = MESH_P, rows.shape[0] // MESH_P
+    plans = [MB._ShardPlan(cfg, rows[p::P][:per]) for p in range(P)]
+    g = MB._init_union(cfg, P, per, dev)
+    MB._boot(g, cfg, plans, per)
+    pos = 1
+    while pos < warm:
+        w = min(cfg.wave_size, pos, warm - pos)
+        MB._insert_wave_union(g, cfg, plans, per, w)
+        pos += w
+    lock = device_breakdown(
+        lambda: MB._insert_wave_union(g, cfg, plans, per, wave), card,
+        f"lockstep build, one wave of {P} x {wave} rows")
+    seq = HnswIndex(cfg, capacity=per, device=dev)
+    x = rows[0::P][:per]
+    seq.add(x[:warm])
+    state = {"pos": warm}
+
+    def one_wave():
+        s = state["pos"]
+        seq._insert_wave(x[s:s + wave], seq._draw_levels(wave))
+        state["pos"] = s + wave
+
+    single = device_breakdown(
+        one_wave, card, f"sequential wave build, one wave of {wave} rows")
+    return {"lockstep": lock, "sequential": single}
+
+
+def mesh_build_phase(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
+                     card: str, dev: torch.device) -> dict:
+    """PartitionedHnswIndex(8 hash partitions, graph engine) over the first
+    200,000 rows built in lockstep (mesh="auto") against each partition's
+    rows built by HnswIndex(capacity=25,000).build(mode="wave") in the
+    same call: every graph tensor equal, both times; a profiled wave of
+    each; recall@10 at ef_search 64 through search and sharded(); the
+    sequential bulk build's time for scale; then the lockstep build of all
+    1M rows."""
+    out = {}
+    cfg = HnswConfig(dim=DIM, m=16, ef_construction=64, seed=0)
+    qdev = torch.from_numpy(queries).to(dev)
+    sub = base[:MESH_N]
+    per = MESH_N // MESH_P
+    t0 = time.perf_counter()
+    lock = PartitionedHnswIndex(cfg, MESH_P, router="hash", engine="graph",
+                                device=dev).build(sub, mesh="auto")
+    torch.cuda.synchronize()
+    out["lockstep_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seqs = [HnswIndex(cfg, capacity=per, device=dev).build(
+        sub[part._global_ids], mode="wave") for part in lock.parts]
+    torch.cuda.synchronize()
+    out["sequential_s"] = time.perf_counter() - t0
+    for p, (part, seq) in enumerate(zip(lock.parts, seqs)):
+        assert part.n == seq.n == per
+        assert (part.entry, part.entry_level, part.n_upper) == (
+            seq.entry, seq.entry_level, seq.n_upper), f"partition {p}"
+        for name in ("vectors", "vectors_sq", "neighbors0", "upper_nbrs",
+                     "upper_slot", "levels", "deleted"):
+            assert torch.equal(getattr(part.graph, name),
+                               getattr(seq.graph, name)), (p, name)
+    del seqs
+    out["speedup"] = out["sequential_s"] / out["lockstep_s"]
+    print(f"lockstep build of {MESH_P} hash partitions x {per} rows: "
+          f"{out['lockstep_s']:.3f} s ({MESH_N / out['lockstep_s']:.1f} "
+          f"rows/s) against {out['sequential_s']:.3f} s "
+          f"({MESH_N / out['sequential_s']:.1f} rows/s) for the {MESH_P} "
+          f"sequential wave builds, x{out['speedup']:.2f}; every partition's "
+          f"graph tensors, entry, levels and upper count equal [{card}]",
+          flush=True)
+    sgt = FlatIndex(sub, Metric.L2, device=dev).search(qdev, k=10,
+                                                       exact=True)[1]
+    _, ids = lock.search(queries, k=10, ef_search=64)
+    out["recall"] = recall_at_k(ids, sgt, 10)
+    _, sids = lock.sharded().search(queries, k=10, ef_search=64)
+    out["sharded_recall"] = recall_at_k(sids, sgt, 10)
+    assert np.array_equal(sids, ids), "sharded() ids differ from search"
+    t0 = time.perf_counter()
+    PartitionedHnswIndex(cfg, MESH_P, router="hash", engine="graph",
+                         device=dev).build(sub)
+    torch.cuda.synchronize()
+    out["sequential_bulk_s"] = time.perf_counter() - t0
+    print(f"lockstep partitions: recall@10 {out['recall']:.4f} at "
+          f"ef_search 64 (search), {out['sharded_recall']:.4f} (sharded(), "
+          f"equal ids); the sequential bulk build of the same partitions "
+          f"{out['sequential_bulk_s']:.3f} s [{card}]", flush=True)
+    del lock
+    torch.cuda.empty_cache()
+    out["waves"] = mesh_wave_breakdowns(sub, cfg, card, dev, warm=2048)
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    big = base[:MESH_BIG_N]
+    t0 = time.perf_counter()
+    lock = PartitionedHnswIndex(cfg, MESH_P, router="hash", engine="graph",
+                                device=dev).build(big, mesh="auto")
+    torch.cuda.synchronize()
+    out["big_s"] = time.perf_counter() - t0
+    out["big_peak_GB"] = peak_gb()
+    big_gt = gt if MESH_BIG_N == N else FlatIndex(
+        big, Metric.L2, device=dev).search(qdev, k=10, exact=True)[1]
+    _, ids = lock.search(queries, k=10, ef_search=64)
+    out["big_recall"] = recall_at_k(ids, big_gt, 10)
+    out["big_n_upper"] = [p.n_upper for p in lock.parts]
+    print(f"lockstep build of {MESH_BIG_N} rows over {MESH_P} hash "
+          f"partitions: {out['big_s']:.3f} s ({MESH_BIG_N / out['big_s']:.1f}"
+          f" rows/s), upper elements a partition {out['big_n_upper']} "
+          f"(dense-scan seeding from {HnswIndex.ROUTE_SCAN_MIN_UPPER}), "
+          f"recall@10 {out['big_recall']:.4f} at ef_search 64, peak "
+          f"{out['big_peak_GB']:.2f} GB [{card}]", flush=True)
+    del lock
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# host data made beside the card's work
+# ---------------------------------------------------------------------------
+
+#: the later phases' host data, one spawned process each
+HOST_DATA = ("config_d", "sparse", "binary")
+
+
+def make_host_data(name: str):
+    """One phase's numpy data, exactly as the phase would make it."""
+    if name == "config_d":
+        return config_d_data()
+    if name == "sparse":
+        from tpu_hnsw_torch import SparseVecs
+        from tpu_hnsw_torch.io.datasets import synthetic_splade
+
+        bi, bv, qi, qv = synthetic_splade(SP_N, vocab=SP_VOCAB, nnz=SP_NNZ,
+                                          n_queries=SP_NQ, seed=SP_SEED)
+        return (SparseVecs(bi, bv, SP_VOCAB), SparseVecs(qi, qv, SP_VOCAB))
+    base, queries = synthetic_clustered(N, BIN_DIM, n_queries=NQ,
+                                        seed=DATA_SEED)
+    return binary_quantize(base).numpy(), binary_quantize(queries).numpy()
+
+
+def _host_data_worker(name: str, path: str) -> None:
+    """Make one phase's data and pickle it, with the seconds it took, to
+    ``path`` (a queue pipes gigabytes at tens of MB/s)."""
+    import pickle
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    data = make_host_data(name)
+    with open(path, "wb") as f:
+        pickle.dump((data, time.perf_counter() - t0), f, protocol=5)
+
+
+class HostData:
+    """The numpy data of config D, the sparse cell and the binary path
+    (about 130 s of single-threaded host work), made by one spawned
+    process each while the kernels build and the 1M x 128 rows are made,
+    and passed through files in a temporary directory. ``wait`` joins the
+    processes before the first timed phase, so no timed window shares the
+    host with them; each phase then takes its data. The processes are
+    stopped and the directory removed on exit, finished or not."""
+
+    def __enter__(self):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_")
+        self.procs = {name: ctx.Process(target=_host_data_worker,
+                                        args=(name, self._path(name)),
+                                        daemon=True)
+                      for name in HOST_DATA}
+        for proc in self.procs.values():
+            proc.start()
+        return self
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.dir, f"{name}.pkl")
+
+    def wait(self) -> None:
+        for name, proc in self.procs.items():
+            proc.join(timeout=900)
+            if proc.exitcode != 0:
+                raise RuntimeError(f"host data {name!r} failed "
+                                   f"(exit code {proc.exitcode})")
+
+    def take(self, name: str):
+        """(data, seconds the worker took to make and write it)."""
+        import pickle
+
+        with open(self._path(name), "rb") as f:
+            data = pickle.load(f)
+        os.remove(self._path(name))
+        return data
+
+    def __exit__(self, *exc):
+        import shutil
+
+        for proc in self.procs.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return False
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script needs a GPU")
+    with HostData() as host:
+        run(host)
+
+
+def run(host: HostData) -> None:
     card = card_line()
     print(f"card: {card}", flush=True)
     with phase("kernel builds"):
         builds = build_phase()
-    with phase("collectives"):
-        merges = collectives_phase(card, torch.device("cuda"))
     with phase("1M x 128 data"):
         base, queries = synthetic_clustered(N, DIM, n_queries=NQ,
                                             seed=DATA_SEED)
+    # every later phase is timed: the data workers end first
+    with phase("host data wait"):
+        host.wait()
     dev = torch.device("cuda")
+    with phase("collectives"):
+        merges = collectives_phase(card, dev)
     with phase("expand kernel checks"):
         variants, topr, random_timing = kernel_phase(base, queries, card,
                                                      dev)
@@ -2132,12 +2646,17 @@ def main() -> None:
         modes_launches = expand_launches()
         assert modes_launches["expand_topr"] > 0, \
             "the centroid-partitioned block path never launched expand_topr"
+        torch.cuda.empty_cache()
+    with phase("mesh build"):
+        X.LAUNCHES = X.TOPR_LAUNCHES = 0
+        mesh = mesh_build_phase(base, queries, gt, card, dev)
+        mesh_launches = expand_launches()  # the graph engine has no kernel
         del base, queries
         torch.cuda.empty_cache()
 
     # config D at full width: its launch counters are kept by the phase
     with phase("config D"):
-        cfg_d = config_d_phase(card, dev)
+        cfg_d = config_d_phase(card, dev, host.take("config_d"))
         d_launches = cfg_d.pop("launches")
         assert d_launches["expand_topr"] > 0, \
             "config D never launched expand_topr"
@@ -2153,8 +2672,22 @@ def main() -> None:
         breakdowns.append(stacked.pop("breakdown"))
         torch.cuda.empty_cache()
 
+    # the sparse cell: its launch counters are kept by the phase
+    with phase("sparse"):
+        sparse = sparse_phase(card, dev, host.take("sparse"))
+        sp_launches = sparse["launches"]
+        assert sp_launches["expand_topr"] > 0, \
+            "the sparse path never launched expand_topr"
+        assert sp_launches["expand_score"] > 0, \
+            "the sparse path at rerank_k 200 never launched expand_score"
+        topr.extend(sparse["topr"])
+        variants.extend(sparse["variants"])
+        timings.extend(sparse["timings"])
+        breakdowns.append(sparse["breakdown"])
+        torch.cuda.empty_cache()
+
     with phase("binary"):
-        binary = binary_phase(card, dev)
+        binary = binary_phase(card, dev, host.take("binary"))
     variants.extend(binary["expand_d1536"])
     topr.extend(binary["topr_d1536"])
     timings.extend(binary["timings"])
@@ -2165,7 +2698,9 @@ def main() -> None:
                 and not v["masked"])
     print(json.dumps({"main_path": numbers, "lifecycle": life,
                       "graph": graph, "ivf": ivf, "partition_modes": modes,
-                      "config_d": cfg_d, "binary": binary["numbers"],
+                      "config_d": cfg_d, "mesh_build": mesh,
+                      "sparse": sparse["numbers"],
+                      "binary": binary["numbers"],
                       "collectives": merges,
                       "nvcc_s": builds, "phase_s": PHASE_S, "card": card}),
           flush=True)
@@ -2182,6 +2717,8 @@ def main() -> None:
                       "partitioned_centroid_1Mx128": modes_launches[name],
                       "config_d_10Mx96": d_launches[name],
                       "config_d_stacked_10Mx96": d_stacked_launches[name],
+                      "mesh_build_8x25k_and_1M": mesh_launches[name],
+                      "sparse_1Mx30522": sp_launches[name],
                       "binary_1Mx1536": launches_bin[name]}
                for name in ("expand_score", "expand_topr")}
     print(json.dumps({"stage1_timings": timings,
@@ -2202,6 +2739,7 @@ def main() -> None:
                     "CUDA events over back-to-back calls, device_ms: the "
                     "span of one call behind a spin kernel",
         "variants": variants,
+        "at_sparse_shape": sparse["variants"],
     }, {
         "name": "expand_topr", "route": "cuda",
         "source": "tpu_hnsw_torch/csrc/expand_score.cu "
@@ -2226,6 +2764,7 @@ def main() -> None:
                     "calls, *device_ms: the span of one call behind a spin "
                     "kernel",
         "variants": topr,
+        "at_sparse_shape": sparse["timings"],
     }, {
         "name": "hamming_scan", "route": "cuda",
         "source": "tpu_hnsw_torch/csrc/hamming_scan.cu",

@@ -1,8 +1,9 @@
 """tpu_hnsw_torch stands alone: importing it and running builds and
-searches (block, binary, graph, IVF and partitioned indexes, the stacked
-searchers, the merge collectives and the QPS harness) loads neither JAX
-nor tpu_hnsw. The entry points added with IVF and partitioning, and the
-stacked searchers, default to the card."""
+searches (block, binary, graph, IVF and partitioned indexes, the lockstep
+partition build, the stacked searchers, the merge collectives, the QPS
+harness and the sparse indexes) loads neither JAX nor tpu_hnsw. The entry
+points added with IVF, partitioning and sparse vectors, and the stacked
+searchers, default to the card."""
 
 import os
 import subprocess
@@ -57,6 +58,11 @@ for engine in ("block", "graph"):
     _, ids = part.search(q, k=5, ef_search=64)
     _, dids = part.search_device(q, k=5, ef_search=64)
     assert (dids.numpy() == ids).all()
+    lock = PartitionedHnswIndex(HnswConfig(dim=16, m=8, ef_construction=32,
+                                           wave_size=64), 2, engine=engine,
+                                block_size=64, device="cpu").build(
+        base[:400], mesh="auto")
+    assert (lock.search(q, k=5, ef_search=64)[1] == ids).all()
     sh = part.sharded()
     _, sids = sh.search(q, k=5, ef_search=64, merge="ring")
     assert (sids == ids).all()
@@ -77,6 +83,14 @@ for merge in (C.gather_merge_topk, C.ring_merge_topk,
     assert v.tolist() == [[1.0, 2.0, 3.0]] and j.tolist() == [[5, 6, 7]]
 qps, ids = measure_qps(ivf, q, 5, 0, repeats=1, min_window_s=0.0, probes=8)
 assert qps > 0 and recall_at_k(ids, gt, 5) == 1.0
+from tpu_hnsw_torch import SparseFlatIndex, SparseHnswIndex, SparseVecs
+from tpu_hnsw_torch.io.datasets import synthetic_splade
+bi, bv, qi, qv = synthetic_splade(600, vocab=300, nnz=8, n_queries=8, seed=1)
+sb, sq = SparseVecs(bi, bv, 300), SparseVecs(qi, qv, 300)
+sgt = SparseFlatIndex(sb, Metric.IP, device="cpu").search(sq, k=5)[1]
+sidx = SparseHnswIndex(metric="ip", proj_dim=16, block_size=32,
+                       device="cpu").build(sb)
+assert recall_at_k(sidx.search(sq, k=5, rerank_k=600)[1], sgt, 5) == 1.0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tpu_hnsw"))
 print("LOADED", bad)
@@ -134,3 +148,23 @@ def test_stacked_searchers_default_to_the_card(tmp_path):
         return
     assert ShardedBlockSearcher.from_saved(
         str(tmp_path / "p")).device.type == "cuda"
+
+
+def test_sparse_entry_points_default_to_the_card(monkeypatch):
+    """SparseFlatIndex, SparseHnswIndex (and its load) and sparse_distance
+    go to CUDA without a device; without a card that raises instead of
+    running on the CPU."""
+    from tpu_hnsw_torch import SparseFlatIndex, SparseHnswIndex, SparseVecs
+    from tpu_hnsw_torch.ops.sparse import sparse_distance
+
+    v = SparseVecs(np.array([[0, 2]]), np.array([[1.0, 2.0]]), 4)
+    assert SparseHnswIndex(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert SparseHnswIndex().device.type == "cuda"
+        return
+    for make in (lambda: SparseHnswIndex(), lambda: SparseFlatIndex(v),
+                 lambda: sparse_distance(v, v)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert SparseHnswIndex().device.type == "cuda"

@@ -224,9 +224,10 @@ def test_graph_engine_save_load(graph_hash, tmp_path):
 
 def test_mesh_modes_refuse(hash_block, graph_hash):
     """sharded() returns the stacked searcher of the engine, serving the
-    host loop's ids over every partition; the mesh build is a later slice
-    and raises, naming ROADMAP.md queue 1 item 3c, instead of looping on
-    the host."""
+    host loop's ids over every partition; ``build(mesh="auto")`` builds the
+    graph partitions in lockstep (tests/test_torch_mesh_build.py), the
+    same graphs as the sequential build, so the host loop returns the same
+    ids; a mesh string that names no device is refused."""
     for fx, cls in ((hash_block, PT.ShardedBlockSearcher),
                     (graph_hash, PT.ShardedHnswSearcher)):
         base, extra, q, idx, _ = fx
@@ -236,9 +237,15 @@ def test_mesh_modes_refuse(hash_block, graph_hash):
         want = idx.search(q, k=10, ef_search=40, **kw)[1]
         got = sh.search(q, k=10, ef_search=40, **kw)[1]
         np.testing.assert_array_equal(got, want)
-    idx = PartitionedHnswIndex(HnswConfig(**CFG), P, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        idx.build(np.zeros((8, 12), np.float32), mesh="auto")
+    base, extra, q, idx, _ = graph_hash
+    lock = PartitionedHnswIndex(HnswConfig(**CFG), P, engine="graph",
+                                device="cpu").build(base, mesh="auto")
+    np.testing.assert_array_equal(
+        lock.search(q, k=10, ef_search=40, descent_ef=4)[1],
+        idx.search(q, k=10, ef_search=40, descent_ef=4)[1])
+    with pytest.raises(RuntimeError):
+        PartitionedHnswIndex(HnswConfig(**CFG), P, device="cpu").build(
+            np.zeros((8, 12), np.float32), mesh="no-such-device")
     with pytest.raises(ValueError, match="engine"):
         PartitionedHnswIndex(HnswConfig(**CFG), P, engine="ivf",
                              device="cpu")

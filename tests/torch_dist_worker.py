@@ -5,9 +5,10 @@ seeded inputs those tests share with it. It imports torch and the port only.
 
 ``CASE`` is ``collectives`` (4 ranks: the three merges of
 ``tpu_hnsw_torch/parallel/collectives.py`` on every input of
-:func:`collective_cases`) or ``sharded`` (2 ranks: the stacked searchers of
-:data:`KINDS` with two partitions a rank). Each rank writes its
-results to ``OUT_DIR/<case>-<rank>.npz``.
+:func:`collective_cases`), ``sharded`` (2 ranks: the stacked searchers of
+:data:`KINDS` with two partitions a rank) or ``mesh_build`` (2 ranks: the
+lockstep build of four graph partitions, two a rank, every graph then on
+both). Each rank writes its results to ``OUT_DIR/<case>-<rank>.npz``.
 """
 
 from __future__ import annotations
@@ -126,6 +127,47 @@ def run_sharded(rank: int) -> dict:
     return out
 
 
+MESH_CFG = dict(dim=12, m=8, ef_construction=32, wave_size=64, seed=3)
+MESH_N, MESH_P = 1200, 4
+
+
+def mesh_build_data():
+    """Rows and queries of the lockstep-build tests
+    (tests/test_torch_mesh_build)."""
+    from tpu_hnsw_torch.io.datasets import synthetic_clustered
+
+    return synthetic_clustered(MESH_N, 12, n_queries=20, seed=41)
+
+
+def graph_arrays(idx) -> dict:
+    """Every partition's graph tensors and scalars, by name."""
+    out = {}
+    for p, sub in enumerate(idx.parts):
+        g = sub.graph
+        for name in ("vectors", "neighbors0", "upper_nbrs", "upper_slot",
+                     "levels"):
+            out[f"{name}_{p}"] = getattr(g, name).cpu().numpy()
+        out[f"scalars_{p}"] = np.array([sub.n, sub.n_upper, sub.entry,
+                                        sub.entry_level, sub.capacity])
+    return out
+
+
+def run_mesh_build(rank: int) -> dict:
+    from tpu_hnsw_torch import HnswConfig, PartitionedHnswIndex
+
+    base, q = mesh_build_data()
+    idx = PartitionedHnswIndex(HnswConfig(**MESH_CFG), MESH_P,
+                               engine="graph", device="cpu").build(
+        base, mesh=dist.group.WORLD)
+    out = graph_arrays(idx)
+    out["ids"] = idx.search(q, k=10, ef_search=40)[1]
+    return out
+
+
+CASES = {"collectives": run_collectives, "sharded": run_sharded,
+         "mesh_build": run_mesh_build}
+
+
 def spawn(case: str, world: int, tmp_dir: str, timeout: float = 240):
     """Run ``case`` on ``world`` ranks (this file in as many processes,
     rendezvous through a FileStore under ``tmp_dir``); returns each rank's
@@ -169,8 +211,7 @@ def main(case: str, rank: int, world: int, store: str, out_dir: str):
         "gloo", store=dist.FileStore(store, world), rank=rank,
         world_size=world)
     try:
-        out = run_collectives(rank) if case == "collectives" else \
-            run_sharded(rank)
+        out = CASES[case](rank)
         np.savez(os.path.join(out_dir, f"{case}-{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

@@ -22,11 +22,14 @@ from tpu_hnsw_torch.index.block import BlockHnswIndex  # noqa: E402
 from tpu_hnsw_torch.index.flat import FlatIndex  # noqa: E402
 from tpu_hnsw_torch.index.hnsw import HnswIndex  # noqa: E402
 from tpu_hnsw_torch.index.ivf import IvfFlatIndex  # noqa: E402
+from tpu_hnsw_torch.index.sparse_ann import SparseHnswIndex  # noqa: E402
 from tpu_hnsw_torch.ops.bitops import BinaryFlatIndex  # noqa: E402
+from tpu_hnsw_torch.ops.sparse import SparseFlatIndex, SparseVecs  # noqa: E402
 from tpu_hnsw_torch.parallel.partition import (  # noqa: E402
     PartitionedHnswIndex, ShardedBlockSearcher, ShardedHnswSearcher)
 
 __all__ = ["BinaryFlatIndex", "BinaryHnswIndex", "BlockHnswIndex",
            "FlatIndex", "HnswConfig", "HnswIndex", "IvfFlatIndex", "Metric",
            "PartitionedHnswIndex", "ShardedBlockSearcher",
-           "ShardedHnswSearcher"]
+           "ShardedHnswSearcher", "SparseFlatIndex", "SparseHnswIndex",
+           "SparseVecs"]

@@ -89,10 +89,17 @@ def _reciprocal_update(g: G.HnswGraph, targets, sources, dists, level: int,
     (sorted by (target, distance)) chunk after chunk, in place: for each
     (target, new) pair, ``HnswUpdateConnection`` (append when the target
     has room, else re-select over existing and new). The reference runs the
-    chunks under ``lax.scan``."""
+    chunks under ``lax.scan``.
+
+    ``[P, U]`` updates are P disjoint graphs' lists (each sorted on its
+    own, no target shared): chunk c applies every row's columns
+    ``[c*ch, (c+1)*ch)`` together, so each graph sees the chunks it would
+    see alone."""
     sent = g.sentinel
     dev = targets.device
-    U = targets.shape[0]
+    if targets.ndim == 1:
+        targets, sources, dists = targets[None], sources[None], dists[None]
+    P, U = targets.shape
     ch = min(UPDATE_CHUNK, U)
     nchunks = (U + ch - 1) // ch
     pad = nchunks * ch - U
@@ -101,26 +108,27 @@ def _reciprocal_update(g: G.HnswGraph, targets, sources, dists, level: int,
         sources = F.pad(sources, (0, pad), value=sent)
         dists = F.pad(dists, (0, pad), value=torch.inf)
     lvl = min(max(level - 1, 0), g.upper_nbrs.shape[1] - 1)
-    idx = torch.arange(ch, device=dev)
+    idx = torch.arange(P * ch, device=dev)
     for c in range(nchunks):
-        t = targets[c * ch:(c + 1) * ch]
-        u = sources[c * ch:(c + 1) * ch]
-        d = dists[c * ch:(c + 1) * ch]
+        t = targets[:, c * ch:(c + 1) * ch].reshape(-1)
+        u = sources[:, c * ch:(c + 1) * ch].reshape(-1)
+        d = dists[:, c * ch:(c + 1) * ch].reshape(-1)
         # group rows by target within the chunk
-        first = torch.ones(ch, dtype=torch.bool, device=dev)
+        first = torch.ones(P * ch, dtype=torch.bool, device=dev)
         first[1:] = t[1:] != t[:-1]
         run_start = torch.cummax(torch.where(first, idx, 0), 0).values
         rank = idx - run_start
         seg = torch.cumsum(first, 0) - 1  # chunk-local unique-target slot
         valid = t != sent
-        tu = torch.full((ch,), sent, dtype=torch.int32, device=dev)
+        tu = torch.full((P * ch,), sent, dtype=torch.int32, device=dev)
         tu[seg] = torch.where(valid, t, sent)
         # ranks past UPDATE_R land in the trash column UPDATE_R
         keep = valid & (rank < UPDATE_R)
         col = torch.where(rank < UPDATE_R, rank, UPDATE_R)
-        new_ids = torch.full((ch, UPDATE_R + 1), sent, dtype=torch.int32,
-                             device=dev)
-        new_dists = torch.full((ch, UPDATE_R + 1), torch.inf, device=dev)
+        new_ids = torch.full((P * ch, UPDATE_R + 1), sent,
+                             dtype=torch.int32, device=dev)
+        new_dists = torch.full((P * ch, UPDATE_R + 1), torch.inf,
+                               device=dev)
         new_ids[seg, col] = torch.where(keep, u, sent)
         new_dists[seg, col] = torch.where(keep, d, torch.inf)
         new_ids, new_dists = new_ids[:, :UPDATE_R], new_dists[:, :UPDATE_R]

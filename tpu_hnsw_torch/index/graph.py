@@ -79,8 +79,11 @@ def storage_dtype(config: HnswConfig) -> torch.dtype:
     return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
 
 
-def init_graph(config: HnswConfig, cap: int, device) -> HnswGraph:
-    cap_u = upper_capacity(cap, config.m)
+def init_graph(config: HnswConfig, cap: int, device,
+               cap_upper: int | None = None) -> HnswGraph:
+    """Empty tables for ``cap`` elements and ``cap_upper`` upper slots
+    (default :func:`upper_capacity`)."""
+    cap_u = upper_capacity(cap, config.m) if cap_upper is None else cap_upper
     i32 = dict(dtype=torch.int32, device=device)
     return HnswGraph(
         vectors=torch.zeros((cap + 1, config.dim), dtype=storage_dtype(config),

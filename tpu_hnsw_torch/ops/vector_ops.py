@@ -1,6 +1,6 @@
 """The ``vector`` type function surface (port of
 ``tpu_hnsw/ops/vector_ops.py``). Only ``binary_quantize`` is ported so
-far; the rest of the surface is ROADMAP queue 1 item 14."""
+far; the rest of the surface is ROADMAP queue 1 item 5."""
 
 from __future__ import annotations
 

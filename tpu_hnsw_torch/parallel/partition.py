@@ -25,8 +25,9 @@ Sub-indexes are ``HnswIndex`` (``engine="graph"``) or ``BlockHnswIndex``
   With a ``torch.distributed`` process group of R ranks each rank holds
   P / R partitions and the lists merge through :mod:`.collectives`.
 
-The mesh build (the reference's ``build(mesh=...)``) is not ported yet
-(ROADMAP.md queue 1, item 3c).
+``build(data, mesh=...)`` builds the graph engine's partitions in
+lockstep (:mod:`.mesh_build`): every wave step advances every partition on
+one device, or P / R partitions on each of R ranks.
 """
 
 from __future__ import annotations
@@ -50,11 +51,8 @@ from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.parallel import collectives as C
 from tpu_hnsw_torch.parallel import kmeans as KM
+from tpu_hnsw_torch.parallel import mesh_build
 from tpu_hnsw_torch.utils.device import entry_device
-
-_MESH_BUILD_NOT_PORTED = (
-    "the mesh build of PartitionedHnswIndex is not ported yet (ROADMAP.md "
-    "queue 1, item 3c); build without a mesh, then serve through sharded()")
 
 
 def _dup_mask_np(ids: np.ndarray) -> np.ndarray:
@@ -191,10 +189,15 @@ class PartitionedHnswIndex:
 
     # ----------------------------------------------------------------- build
     def build(self, data, mesh=None) -> "PartitionedHnswIndex":
-        """Build every partition in turn on the index's device. A mesh
-        build is not ported yet and raises."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_BUILD_NOT_PORTED)
+        """Build every partition on the index's device. ``mesh``: None
+        builds them in turn; ``"auto"`` or a device builds the graph
+        engine's partitions in lockstep (:mod:`.mesh_build`; in turn for a
+        single partition, as the reference's ``"auto"`` does); a
+        ``torch.distributed`` group or 1-D DeviceMesh of R ranks builds P / R
+        partitions a rank in lockstep and hands every rank all P. The block
+        engine ignores ``mesh``."""
+        if isinstance(mesh, str) and mesh != "auto":
+            torch.device(mesh)  # a device's name, or this raises
         data = np.asarray(data, np.float32)
         n = data.shape[0]
         ids = np.arange(n)
@@ -212,7 +215,7 @@ class PartitionedHnswIndex:
         self._replica_part = replica
         self._replica_local = np.full(n, -1, np.int32)
         self.has_replicas = bool((replica >= 0).any())
-        self.parts = []
+        part_rows = []
         for p in range(self.p):
             rows = np.where(assign == p)[0]
             self._local_of[rows] = np.arange(len(rows), dtype=np.int32)
@@ -221,13 +224,27 @@ class PartitionedHnswIndex:
                 self._replica_local[rep_rows] = (
                     len(rows) + np.arange(len(rep_rows))).astype(np.int32)
                 rows = np.concatenate([rows, rep_rows])
-            sub = self._sub(len(rows))
-            sub._global_ids = rows.astype(np.int32)  # local -> global
-            if len(rows):
-                sub.build(data[rows])
-            elif self.engine == "graph":
-                sub._ensure_graph(0)  # an empty partition has a graph
-            self.parts.append(sub)
+            part_rows.append(rows)
+        self.parts = []
+        if self.engine == "graph" and mesh is not None and (
+                self.p > 1 or mesh_build.is_group(mesh)):
+            prepped = HnswIndex(self.cfg, capacity=1,
+                                device=self.device)._prep(data)
+            self.parts = mesh_build.build_partitions_mesh(
+                self.cfg, [prepped[r] for r in part_rows],
+                mesh=mesh,
+                device=self.device)
+            for sub, rows in zip(self.parts, part_rows):
+                sub._global_ids = rows.astype(np.int32)
+        else:
+            for rows in part_rows:
+                sub = self._sub(len(rows))
+                sub._global_ids = rows.astype(np.int32)  # local -> global
+                if len(rows):
+                    sub.build(data[rows])
+                elif self.engine == "graph":
+                    sub._ensure_graph(0)  # an empty partition has a graph
+                self.parts.append(sub)
         self.n = n
         return self
 
