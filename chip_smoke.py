@@ -27,10 +27,33 @@ plain version):
    the routed bids of the first 1024 queries; a ``torch.profiler``
    breakdown of one 1024-query ``search_device`` chunk (top device ops,
    device-busy time over the unprofiled host wall time); the oracle timed
-   beside the ``torch.topk``-order scan it replaced;
+   beside the ``torch.topk``-order scan it replaced; the same chunk
+   under ``utils/profiling.trace``: device and host ms of the ``route``
+   and ``expand`` ranges, and the host cost of an annotation outside a
+   trace;
 5. filter and lifecycle on that index: the 10%-selectivity filter of
    bench.py, add, delete, filtered ``search_iterative``, ``compact`` and a
-   ``save``/``load`` round trip; then the graph engine on the same rows
+   ``save``/``load`` round trip; then the port's CLI and planner on the
+   same rows: the rows and queries written as .fvecs and a uint8 copy as
+   .bvecs, each read back by the native parser (``io/native.py``, which
+   must load) and by numpy (equal arrays, GB/s); ``python -m
+   tpu_hnsw_torch.cli build --type block``, ``search`` (printed distances
+   checked against the ids' L2) and ``eval --gt`` (the oracle's ids as
+   .ivecs; recall@10 >= 0.95 at some ef_search), each a subprocess on the
+   card; ``tpu_hnsw_torch.cli bench`` at its default 1M x 128 (the root
+   bench.py's JSON keys, recall target met); ``expand_topr`` against its
+   plain version at the CLI's and the bench's shapes (int8 keys exactly
+   equal) on the bids the CLI's saved index routes: search's 4,096
+   queries at ef_search 40, eval's 512-query chunks at every probe count
+   of its sweep (3 to 105), the bench's 4,096 queries at each grid point
+   up to its probes and, with its 10% filter mask, at twice them;
+   ``planner.calibrate()`` (five finite constants; its 2,048-query stage-1
+   call on random bids against the plain version), each estimator beside
+   the bench's QPS, the two constants ``planner.anchor`` solves from this
+   run, and ``choose_engine(1M, 128)`` on a sample of the bench's own rows:
+   it must pick the bench's fastest engine, or fail only as the structure
+   gate's known reference defect (ROADMAP queue 3), recorded as an
+   expected failure; then the graph engine on the same rows
    (bulk build, bench.py's ladder, QPS, graph-routed ``BlockHnswIndex``,
    graph add/delete/compact/iterative/save-load);
 6. ``IvfFlatIndex(128, L2, lists=1000)`` on the same rows: build, recall@10
@@ -110,10 +133,12 @@ and the 1M x 128 rows are made; they are joined before the first timed
 phase (``HostData``) and stopped on exit.
 
 Each path's kernel launch counters are set to 0 just before it and read
-just after it; launches made to compare a kernel with its plain version
-are not counted. Stage 1 of the block, lifecycle, graph-routed,
-partitioned (centroid, config D and stacked config D), sparse and binary
-paths must launch ``expand_topr`` (stacked config D once a chunk); the
+just after it (a CLI subprocess prints its own counts when it ends);
+launches made to compare a kernel with its plain version are not
+counted. Stage 1 of the block, lifecycle, CLI (search and eval), bench,
+planner (``calibrate``), graph-routed, partitioned (centroid, config D and
+stacked config D), sparse and binary paths must launch ``expand_topr``
+(stacked config D once a chunk); the
 lifecycle's filtered ``search_iterative`` and the sparse path at rerank_k
 200 widen past the fused limit and must launch ``expand_score`` too. The
 lockstep build launches no kernel (the graph engine is torch ops); its
@@ -127,11 +152,13 @@ outside the tensor cores: 67 TFLOP/s).
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import json
 import math
 import os
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -144,8 +171,12 @@ from tpu_hnsw_torch import (BinaryFlatIndex, BinaryHnswIndex, BlockHnswIndex,
                             FlatIndex, HnswConfig, HnswIndex, IvfFlatIndex,
                             Metric, PartitionedHnswIndex,
                             ShardedBlockSearcher)
+from tpu_hnsw_torch import bench as BN
+from tpu_hnsw_torch import planner as PL
 from tpu_hnsw_torch.index.block import (_make_score_copy, _pad_cols,
                                         _quantize_rows, _route_exact)
+from tpu_hnsw_torch.io import datasets as DS
+from tpu_hnsw_torch.io import native
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
 from tpu_hnsw_torch.ops import _nvcc
 from tpu_hnsw_torch.ops import bitops as BO
@@ -154,12 +185,14 @@ from tpu_hnsw_torch.ops import hamming as H
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.ops.vector_ops import binary_quantize
 from tpu_hnsw_torch.parallel import collectives as C
+from tpu_hnsw_torch.utils import profiling
+from tpu_hnsw_torch.utils import evalharness as E
 from tpu_hnsw_torch.utils.evalharness import measure_qps
 from tpu_hnsw_torch.utils.recall import recall_at_k
 
 N, DIM, NQ, DATA_SEED = 1_000_000, 128, 4096, 42
 BLOCK = 256
-PROBE_GRID = (4, 8, 16, 32, 64, 128)  # bench.py:160
+PROBE_GRID = BN.PROBE_GRID  # the port's bench grid (bench.py:160)
 TARGET_RECALL = 0.95
 CHUNK = 1024
 KERNEL_Q = 1024
@@ -172,7 +205,7 @@ BIN_DIM = 1536             # dbpedia-entities-openai-1M's width, in bits
 RAGGED_Q = 76              # a query count that ends in a partly filled tile
 HBM_BPS = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
-FILTER_SEED, FILTER_SHARE = 17, 0.10  # bench.py:185-196
+FILTER_SEED, FILTER_SHARE = BN.FILTER_SEED, BN.FILTER_SHARE
 N_ADD = 10_000
 
 
@@ -739,7 +772,7 @@ def lifecycle_phase(idx, base: np.ndarray, queries: np.ndarray, chosen: int,
     save/load round trip on the 1M x 128 index."""
     out = {}
     qdev = torch.from_numpy(queries).to(dev)
-    fmask = np.random.default_rng(FILTER_SEED).random(N) < FILTER_SHARE
+    fmask = BN.filter_mask(N)
     allowed_ids = np.where(fmask)[0]
     fsub = FlatIndex(torch.from_numpy(base[allowed_ids]).to(dev), Metric.L2)
     fgt = allowed_ids[fsub.search(qdev, k=10, exact=True)[1]]
@@ -820,12 +853,296 @@ def lifecycle_phase(idx, base: np.ndarray, queries: np.ndarray, chosen: int,
     return out
 
 
-# bench.py:258-261, cheapest first: (descent_ef, ef_search, expand,
-# max_steps); max_steps 0 runs the beam to convergence
-GRAPH_LADDER = ((16, 16, 3, 4), (24, 16, 3, 4), (16, 16, 3, 5),
-                (16, 16, 4, 4), (24, 16, 2, 5), (8, 16, 4, 5), (8, 24, 4, 6),
-                (8, 24, 4, 7), (8, 40, 4, 9), (8, 64, 4, 0), (8, 128, 1, 0),
-                (8, 200, 1, 0))
+
+# ---------------------------------------------------------------------------
+# the port's CLI, its bench headline, the planner and the profiler ranges
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI_INDEX = "cli_block"  # the CLI's saved index, under the phase's tmp dir
+# runs ``python -m tpu_hnsw_torch.cli ARGS`` in this process and then
+# prints the kernel launch counters of the run on stderr
+CLI_RUNNER = (
+    "import json, runpy, sys\n"
+    "from tpu_hnsw_torch.ops import expand as X\n"
+    "sys.argv = ['tpu_hnsw_torch.cli', *sys.argv[1:]]\n"
+    "try:\n"
+    "    runpy.run_module('tpu_hnsw_torch.cli', run_name='__main__',\n"
+    "                     alter_sys=True)\n"
+    "finally:\n"
+    "    print('LAUNCHES ' + json.dumps({\n"
+    "        'expand_score': X.LAUNCHES - X.TOPR_LAUNCHES,\n"
+    "        'expand_topr': X.TOPR_LAUNCHES}), file=sys.stderr, flush=True)\n")
+
+
+def run_cli(args: list, timeout: float) -> dict:
+    """``python -m tpu_hnsw_torch.cli`` as a subprocess on the card: its
+    stdout, stderr, seconds and expand launches. Fails on a non-zero
+    exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_RUNNER, *args],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"tpu_hnsw_torch.cli {' '.join(args)} exited "
+                           f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-6000:]}")
+    tag = [ln for ln in proc.stderr.splitlines() if ln.startswith("LAUNCHES ")]
+    return {"stdout": proc.stdout, "stderr": proc.stderr, "s": secs,
+            "launches": json.loads(tag[-1][len("LAUNCHES "):])}
+
+
+def json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def data_files_phase(base: np.ndarray, queries: np.ndarray, tmp: str,
+                     card: str) -> tuple[dict, dict]:
+    """The rows and queries as .fvecs and a uint8 copy of the rows as
+    .bvecs; each read back through the native parser and through numpy:
+    equal arrays, GB/s of each (the best of two turns, native first)."""
+    assert native.load() is not None, "the native IO library did not load"
+    paths = {"base": os.path.join(tmp, "base.fvecs"),
+             "queries": os.path.join(tmp, "queries.fvecs"),
+             "base_u8": os.path.join(tmp, "base.bvecs")}
+    u8 = np.clip(np.rint(base * 8.0 + 128.0), 0, 255).astype(np.uint8)
+    t0 = time.perf_counter()
+    DS.write_fvecs(paths["base"], base)
+    DS.write_fvecs(paths["queries"], queries)
+    DS.write_bvecs(paths["base_u8"], u8)
+    out = {"write_s": time.perf_counter() - t0}
+    for name, path, want, nat, nump in (
+            ("fvecs", paths["base"], base, native.read_fvecs_native,
+             DS.read_fvecs_numpy),
+            ("bvecs", paths["base_u8"], u8, native.read_bvecs_native,
+             DS.read_bvecs_numpy)):
+        gb = os.path.getsize(path) / 1e9
+        times = {"native": [], "numpy": []}
+        for which in ("native", "numpy", "native", "numpy"):
+            t0 = time.perf_counter()
+            got = (nat if which == "native" else nump)(path)
+            times[which].append(time.perf_counter() - t0)
+            assert got is not None and np.array_equal(got, want), \
+                f"{which} {name} reader disagrees with the rows written"
+        rec = {"GB": gb, "native_s": min(times["native"]),
+               "numpy_s": min(times["numpy"])}
+        rec["native_GBps"] = gb / rec["native_s"]
+        rec["numpy_GBps"] = gb / rec["numpy_s"]
+        out[name] = rec
+        print(f"{name} {gb:.3f} GB: native reader {rec['native_GBps']:.2f} "
+              f"GB/s, numpy {rec['numpy_GBps']:.2f} GB/s, arrays equal "
+              f"(page cache warm) [{card}]", flush=True)
+    return out, paths
+
+
+def cli_phase(base: np.ndarray, gt: np.ndarray, paths: dict, tmp: str,
+              card: str) -> dict:
+    """``tpu_hnsw_torch.cli`` build --type block, search and eval (with the
+    oracle's ground truth as .ivecs), each a subprocess on the card."""
+    out = {"launches": {"expand_score": 0, "expand_topr": 0}}
+    gt_path = os.path.join(tmp, "gt.ivecs")
+    DS.write_ivecs(gt_path, gt.astype(np.int32))
+    idx_dir = os.path.join(tmp, CLI_INDEX)
+    r = run_cli(["build", "--type", "block", "--input", paths["base"],
+                 "--out", idx_dir], timeout=600)
+    out["build"] = json_lines(r["stdout"])[-1]
+    out["build"]["process_s"] = r["s"]
+    assert out["build"]["built"] == N
+    print(f"cli build --type block: {out['build']['vectors_per_sec']} vec/s "
+          f"({out['build']['seconds']} s in the process, {r['s']:.1f} s "
+          f"with start-up, read and save) [{card}]", flush=True)
+    r = run_cli(["search", "--index", idx_dir, "--queries", paths["queries"],
+                 "--k", "10", "--ef", "40", "--print-rows", "5"], timeout=600)
+    out["search"] = json_lines(r["stderr"])[-1]
+    rows = [ln.split() for ln in r["stdout"].splitlines() if ":" in ln]
+    assert len(rows) == 5 and all(len(row) == 10 for row in rows)
+    ids = np.array([[int(t.split(":")[0]) for t in row] for row in rows])
+    dist = np.array([[float(t.split(":")[1]) for t in row] for row in rows])
+    qs = DS.read_fvecs(paths["queries"])[:5]
+    exact = ((qs[:, None, :].astype(np.float64) - base[ids]) ** 2).sum(-1)
+    # the f32 bound of the |q|^2 + |x|^2 - 2 q.x form (as main_path's),
+    # plus the printed 4 decimals
+    err = np.abs(dist.astype(np.float64) ** 2 - exact)
+    assert (err <= sq_bound(base, qs) + 2 * dist * 5e-5 + 1e-8).all(), \
+        f"cli search distances are not the ids' L2 (off by {err.max()})"
+    for k, v in r["launches"].items():
+        out["launches"][k] += v
+    print(f"cli search ef 40: {out['search']['qps']} QPS over "
+          f"{out['search']['queries']} queries (one host call), printed "
+          f"distances exact [{card}]", flush=True)
+    r = run_cli(["eval", "--index", idx_dir, "--queries", paths["queries"],
+                 "--gt", gt_path, "--k", "10"], timeout=900)
+    out["eval"] = json_lines(r["stdout"])
+    for k, v in r["launches"].items():
+        out["launches"][k] += v
+    for row in out["eval"]:
+        print(f"cli eval: ef_search {row['ef_search']} recall@10 "
+              f"{row['recall']:.4f} QPS {row['qps']:.1f} [{card}]",
+              flush=True)
+    best = max(row["recall"] for row in out["eval"])
+    assert best >= TARGET_RECALL, f"cli eval reached recall {best}"
+    assert out["launches"]["expand_topr"] > 0, \
+        "the CLI's search and eval never launched expand_topr"
+    return out
+
+
+def bench_phase(card: str) -> dict:
+    """``tpu_hnsw_torch.cli bench`` at its default 1M x 128: its JSON
+    line, with the root bench.py's keys and the recall target met."""
+    r = run_cli(["bench"], timeout=1000)
+    rec = json_lines(r["stdout"])[-1]
+    print(f"cli bench ({r['s']:.1f} s): {json.dumps(rec)} [{card}]",
+          flush=True)
+    assert tuple(rec) == BN.RESULT_KEYS, f"bench keys {list(rec)}"
+    differ = sorted(set(rec["extra"]) ^ set(BN.EXTRA_KEYS))
+    assert not differ, f"bench extra keys differ: {differ}"
+    assert rec["extra"]["recall_target_met"], "bench missed its target"
+    assert r["launches"]["expand_topr"] > 0, "bench never launched expand_topr"
+    return {"json": rec, "s": r["s"], "launches": r["launches"]}
+
+
+def cli_bench_shapes(idx_dir: str, queries: np.ndarray, bench: dict,
+                     card: str, dev: torch.device) -> list:
+    """expand_topr against its plain version at the shapes the CLI and the
+    bench launched it at, on the bids that the CLI's saved 1M x 128 index
+    routes (the bench builds that index from the same rows and queries):
+    ``search``'s one 4,096-query call at ef_search 40; ``eval``'s chunks
+    (``measure_qps``'s pipeline) at every probe count of its sweep; the
+    bench's 4,096-query calls at each grid point up to its probes and, with
+    its 10% filter mask, at twice them. The stage-1 width is the index's
+    (rerank_width, k 10); int8 keys exactly equal."""
+    idx = BlockHnswIndex.load(idx_dir, device=dev)
+    nq = len(queries)
+    q = torch.from_numpy(queries).to(dev)
+    r = max(idx.rerank_width, 10)
+    probes = bench["extra"]["probes"]
+    eval_q = max(64, nq // E.PIPELINE)
+    cases = [("cli search ef_search 40", nq, idx.probes_for_ef(40), None)]
+    cases += [(f"cli eval chunk, probes {p}", eval_q, p, None)
+              for p in sorted({idx.probes_for_ef(ef) for ef in E.SWEEP_EFS
+                               if ef >= 10})]
+    cases += [(f"bench grid, probes {p}", nq, p, None)
+              for p in PROBE_GRID if p <= probes]
+    cases.append((f"bench filtered, probes {2 * probes}", nq, 2 * probes,
+                   BN.filter_mask(idx.n_total)))
+    recs = []
+    for what, n_q, p, mask in cases:
+        args, kw = routed_args(idx, q[:n_q], p)
+        if mask is not None:
+            kw["allowed"] = idx._filter_device(mask)[0]
+        recs.extend(topr_variants(args, kw, "int8", card, 0.0,
+                                  f"{what} (routed bids)", rs=(r,),
+                                  nqs=(n_q,)))
+        recs[-1]["p"] = p
+    del idx
+    torch.cuda.empty_cache()
+    return recs
+
+
+def planner_phase(base: np.ndarray, bench: dict, card: str) -> dict:
+    """``planner.calibrate()`` on the card (its expand_topr launches
+    counted, its stage-1 call held against the plain version), each
+    estimator beside the bench's QPS, the two constants that
+    ``planner.anchor`` solves from this run, and ``choose_engine(1M, 128)``
+    on a sample of the bench's own rows. The plan must be the engine that
+    was fastest in the bench. It may differ only as the known reference
+    defect (ROADMAP queue 3): the structure gate refuses the ANN engines
+    and picks flat, while with the gate off the estimators, at the
+    defaults and at the calibrated rates, pick the fastest; that case is
+    recorded as an expected failure."""
+    X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    t0 = time.perf_counter()
+    raw = PL.calibrate()
+    out = {"calibrate_s": time.perf_counter() - t0,
+           "launches": expand_launches()}
+    assert out["launches"]["expand_topr"] > 0, \
+        "calibrate never launched expand_topr"
+    out["calibrated"] = dataclasses.asdict(raw)
+    assert all(math.isfinite(v) and v > 0 for v in out["calibrated"].values())
+    print(f"planner.calibrate() ({out['calibrate_s']:.2f} s): "
+          f"{json.dumps(out['calibrated'])} [{card}]", flush=True)
+    args, kw, r = PL.stage1_case()
+    out["topr"] = topr_variants(args, kw, "int8", card, 0.0,
+                                "planner.calibrate stage 1 (random bids)",
+                                rs=(r,), nqs=(args[3].shape[0],))
+    del args, kw
+    ex = bench["extra"]
+    measured = {"flat": ex["flat_qps"], "block": bench["value"],
+                "graph": ex["hnsw_graph_qps"]}
+    anchored = PL.anchor(raw, N, DIM, block_qps=measured["block"],
+                         graph_qps=measured["graph"])
+    models = {"default": PL.HardwareModel(), "calibrated": raw,
+              "anchored": anchored}
+    est = {name: {"flat": PL.estimate_flat_qps(N, DIM, hw=hw),
+                  "block": PL.estimate_block_qps(N, DIM, hw=hw),
+                  "graph": PL.estimate_graph_qps(N, DIM, hw=hw)}
+           for name, hw in models.items()}
+    for eng in ("flat", "block", "graph"):
+        print(f"planner {eng}: measured {measured[eng]:.1f} QPS, estimated "
+              f"{est['default'][eng]:.1f} (defaults) / "
+              f"{est['calibrated'][eng]:.1f} (calibrated) [{card}]",
+              flush=True)
+    print(f"HardwareModel constants solved from this run (planner.anchor): "
+          f"{json.dumps(dataclasses.asdict(anchored))} [{card}]", flush=True)
+    fastest = max(measured, key=measured.get)
+    sample = base[np.random.default_rng(0).choice(N, 8192, replace=False)]
+    plan = PL.choose_engine(N, DIM, sample=sample)
+    ungated = {name: PL.choose_engine(N, DIM, hw=models[name]).engine
+               for name in ("default", "calibrated")}
+    check = {"engine": plan.engine, "est_qps": plan.est_qps,
+             "params": plan.params, "reason": plan.reason,
+             "structure_score": PL.cluster_structure_score(sample),
+             "fastest_in_bench": fastest, "gate_off": ungated,
+             "expected_failure": None}
+    if plan.engine != fastest:
+        known = (plan.engine == "flat" and "refused" in plan.reason
+                 and check["structure_score"] < PL.STRUCTURE_MIN
+                 and all(e == fastest for e in ungated.values()))
+        assert known, f"choose_engine picked {plan.engine}, the bench's " \
+            f"fastest is {fastest}: {check}"
+        check["expected_failure"] = (
+            "reference parity (ROADMAP queue 3): the structure gate refuses "
+            "the ANN engines on these rows")
+    print(f"choose_engine(1M, 128, sample of the bench rows): {plan.engine} "
+          f"at {plan.est_qps:.1f} est. QPS, structure score "
+          f"{check['structure_score']:.3f}, bench fastest {fastest}, gate "
+          f"off {json.dumps(ungated)} ({plan.reason})"
+          f"{'; EXPECTED FAILURE: ' + check['expected_failure'] if check['expected_failure'] else ''}"
+          f" [{card}]", flush=True)
+    out.update(measured=measured, estimates=est, bench_probes=ex["probes"],
+               anchored_from_this_run=dataclasses.asdict(anchored),
+               plan=check)
+    return out
+
+
+def profile_phase(idx, qchunk, probes: int, card: str) -> dict:
+    """One 1024-query block chunk under ``profiling.trace``: device busy,
+    device span and host ms by range (``profiling.range_times``); and what
+    an annotation costs outside a trace."""
+    idx.search_device(qchunk, k=10, probes=probes)  # warm, untraced
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            idx.search_device(qchunk, k=10, probes=probes)
+        out = {"ranges": profiling.range_times(
+            os.path.join(tmp, profiling.TRACE_FILE), ("route", "expand"))}
+    for name, rec in out["ranges"].items():
+        assert rec["count"] == 1 and rec["device_ms"] > 0, \
+            f"range {name} not traced on the device: {rec}"
+    calls = 200_000
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        with profiling.annotate("route"):
+            pass
+    out["annotate_off_ns"] = (time.perf_counter_ns() - t0) / calls
+    print(f"profiled {CHUNK}-query block chunk by range: "
+          f"{json.dumps(out['ranges'])}; an annotation outside a trace "
+          f"costs {out['annotate_off_ns']:.1f} ns of host time [{card}]",
+          flush=True)
+    return out
+
+GRAPH_LADDER = BN.GRAPH_LADDER  # bench.py:258-261
 N_DELETE = 1_000           # keeps compact's repair batch near 32k rows
 BIN_GRAPH_N = 1_000_000    # rows of the binary graph (cut first if slow)
 JACCARD_GRAPH_N = 100_000
@@ -2607,6 +2924,7 @@ def run(host: HostData) -> None:
             lambda: idx.search_device(qchunk, k=10,
                                       probes=numbers["probes"]),
             card, f"block path, one {CHUNK}-query search_device chunk")]
+        ranges = profile_phase(idx, qchunk, numbers["probes"], card)
     with phase("block lifecycle"):
         X.LAUNCHES = X.TOPR_LAUNCHES = 0
         life = lifecycle_phase(idx, base, queries, numbers["probes"], card,
@@ -2618,6 +2936,23 @@ def run(host: HostData) -> None:
             "search_iterative never widened past the fused limit"
         del idx, qchunk
         torch.cuda.empty_cache()
+
+    # the port's CLI (subprocesses on the card) on the same rows, written
+    # as data files; its bench headline; the planner against it
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("data files"):
+            files, paths = data_files_phase(base, queries, tmp, card)
+        with phase("CLI"):
+            cli = cli_phase(base, gt, paths, tmp, card)
+        with phase("bench"):
+            bench = bench_phase(card)
+        # comparison launches: after the counted runs
+        with phase("CLI and bench shapes"):
+            topr.extend(cli_bench_shapes(os.path.join(tmp, CLI_INDEX),
+                                         queries, bench["json"], card, dev))
+    with phase("planner"):
+        plan = planner_phase(base, bench["json"], card)
+        topr.extend(plan.pop("topr"))
 
     # the graph engine on the same data and ground truth
     with phase("graph"):
@@ -2697,6 +3032,8 @@ def run(host: HostData) -> None:
                 and v["metric"] == "l2" and v["p"] == 8 and v["d"] == DIM
                 and not v["masked"])
     print(json.dumps({"main_path": numbers, "lifecycle": life,
+                      "profile_ranges": ranges, "data_files": files,
+                      "cli": cli, "bench_s": bench["s"], "planner": plan,
                       "graph": graph, "ivf": ivf, "partition_modes": modes,
                       "config_d": cfg_d, "mesh_build": mesh,
                       "sparse": sparse["numbers"],
@@ -2713,6 +3050,9 @@ def run(host: HostData) -> None:
     launches_bin = binary["numbers"]["launches"]
     by_path = {name: {"block_1Mx128": launches[name],
                       "block_lifecycle": life_launches[name],
+                      "cli_search_eval_1Mx128": cli["launches"][name],
+                      "bench_1Mx128": bench["launches"][name],
+                      "planner_calibrate": plan["launches"][name],
                       "block_graph_routed_1Mx128": routed_launches[name],
                       "partitioned_centroid_1Mx128": modes_launches[name],
                       "config_d_10Mx96": d_launches[name],

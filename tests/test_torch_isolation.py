@@ -1,9 +1,10 @@
 """tpu_hnsw_torch stands alone: importing it and running builds and
 searches (block, binary, graph, IVF and partitioned indexes, the lockstep
 partition build, the stacked searchers, the merge collectives, the QPS
-harness and the sparse indexes) loads neither JAX nor tpu_hnsw. The entry
-points added with IVF, partitioning and sparse vectors, and the stacked
-searchers, default to the card."""
+harness and the sparse indexes; and the CLI, its bench, the planner, the
+type surface, native I/O and profiling) loads neither JAX nor tpu_hnsw.
+The entry points added with IVF, partitioning and sparse vectors, and the
+stacked searchers, default to the card."""
 
 import os
 import subprocess
@@ -102,6 +103,57 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+NEW_MODULES_SCRIPT = """
+import json, os, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tpu_hnsw_torch import bench, cli, planner
+from tpu_hnsw_torch.io import datasets as DS, native
+from tpu_hnsw_torch.ops import vector_ops as V
+from tpu_hnsw_torch.utils import evalharness as E, profiling
+assert V.vector_cmp([1, 2], [1, 3]) == -1
+assert V.vector_out(V.halfvec_in("[1.5,2]")) == "[1.5,2]"
+assert abs(float(V.l2_distance([0, 3], [4, 0])) - 5.0) < 1e-6
+assert native.load() is not None
+hw = planner.calibrate(n=2048, dim=8, batch=32, device="cpu")
+assert planner.choose_engine(1_000_000, 128, hw=hw).engine in (
+    "flat", "block", "graph")
+full = E.measure_qps
+E.measure_qps = lambda *a, **k: full(*a, **{**k, "repeats": 1,
+                                             "min_window_s": 0.0})
+base, q = DS.synthetic_clustered(800, 8, n_queries=16, seed=0)
+with tempfile.TemporaryDirectory() as tmp:
+    DS.write_fvecs(os.path.join(tmp, "b.fvecs"), base)
+    DS.write_fvecs(os.path.join(tmp, "q.fvecs"), q)
+    cli.main(["build", "--device", "cpu", "--type", "block", "--input",
+              os.path.join(tmp, "b.fvecs"), "--out", os.path.join(tmp, "i"),
+              "--block-size", "32"])
+    cli.main(["search", "--device", "cpu", "--index", os.path.join(tmp, "i"),
+              "--queries", os.path.join(tmp, "q.fvecs")])
+    with profiling.trace(tmp):
+        cli._load_index(os.path.join(tmp, "i"), "cpu").search(q, k=5)
+os.environ.update(TPU_HNSW_BENCH_N="800", TPU_HNSW_BENCH_D="8",
+                  TPU_HNSW_BENCH_Q="16", TPU_HNSW_BLOCK_SIZE="32",
+                  TPU_HNSW_BENCH_GRAPH="0")
+assert bench.main(device="cpu")["extra"]["recall_target_met"]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tpu_hnsw"))
+print("LOADED", bad)
+"""
+
+
+def test_new_modules_import_no_jax():
+    """The CLI, bench, planner, type surface, native I/O and profiling
+    modules, imported and run (CPU, tiny shapes), load neither JAX nor
+    tpu_hnsw."""
+    out = subprocess.run([sys.executable, "-c", NEW_MODULES_SCRIPT],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout[-3000:]
 
 
 def test_ivf_and_partitioned_default_to_the_card(monkeypatch):

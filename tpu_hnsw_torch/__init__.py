@@ -27,9 +27,11 @@ from tpu_hnsw_torch.ops.bitops import BinaryFlatIndex  # noqa: E402
 from tpu_hnsw_torch.ops.sparse import SparseFlatIndex, SparseVecs  # noqa: E402
 from tpu_hnsw_torch.parallel.partition import (  # noqa: E402
     PartitionedHnswIndex, ShardedBlockSearcher, ShardedHnswSearcher)
+from tpu_hnsw_torch.planner import (  # noqa: E402
+    EnginePlan, HardwareModel, choose_engine)
 
 __all__ = ["BinaryFlatIndex", "BinaryHnswIndex", "BlockHnswIndex",
-           "FlatIndex", "HnswConfig", "HnswIndex", "IvfFlatIndex", "Metric",
-           "PartitionedHnswIndex", "ShardedBlockSearcher",
-           "ShardedHnswSearcher", "SparseFlatIndex", "SparseHnswIndex",
-           "SparseVecs"]
+           "EnginePlan", "FlatIndex", "HardwareModel", "HnswConfig",
+           "HnswIndex", "IvfFlatIndex", "Metric", "PartitionedHnswIndex",
+           "ShardedBlockSearcher", "ShardedHnswSearcher", "SparseFlatIndex",
+           "SparseHnswIndex", "SparseVecs", "choose_engine"]

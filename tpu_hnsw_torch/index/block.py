@@ -42,6 +42,7 @@ from tpu_hnsw_torch.ops import expand as X
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.parallel import kmeans as KM
 from tpu_hnsw_torch.utils.device import entry_device
+from tpu_hnsw_torch.utils.profiling import annotate
 
 #: the kernel loads 16 bytes at a time; scoring-copy rows are padded to it
 ROW_ALIGN_BYTES = 16
@@ -205,15 +206,18 @@ def _serve_exact(blocks, blocks_score, blocks_sq, block_ids, centroids, c_sq,
     centroid routing -> block expansion (+ rerank). Raw scores out."""
     q = q.float()
     q_sq = D.squared_norms(q)
-    bids = _route_exact(centroids, c_sq, q, q_sq, p=probes, metric=metric)
-    if two_stage:
-        return _expand_blocks_2stage(
-            blocks_score, blocks_sq, block_ids,
-            blocks.reshape(-1, blocks.shape[-1]), q, q_sq, bids, k=k,
-            rerank=rerank, metric=metric, score_scale=score_scale,
-            allowed=allowed)
-    return _expand_blocks(blocks, blocks_sq, block_ids, q, q_sq, bids, k=k,
-                          metric=metric, allowed=allowed)
+    with annotate("route"):
+        bids = _route_exact(centroids, c_sq, q, q_sq, p=probes,
+                            metric=metric)
+    with annotate("expand"):
+        if two_stage:
+            return _expand_blocks_2stage(
+                blocks_score, blocks_sq, block_ids,
+                blocks.reshape(-1, blocks.shape[-1]), q, q_sq, bids, k=k,
+                rerank=rerank, metric=metric, score_scale=score_scale,
+                allowed=allowed)
+        return _expand_blocks(blocks, blocks_sq, block_ids, q, q_sq, bids,
+                              k=k, metric=metric, allowed=allowed)
 
 
 # ---------------------------------------------------------------------------

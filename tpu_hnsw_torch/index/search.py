@@ -39,6 +39,7 @@ from tpu_hnsw_torch.config import Metric
 from tpu_hnsw_torch.index import graph as G
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import topk as T
+from tpu_hnsw_torch.utils.profiling import annotate
 
 #: steps between two termination tests of the lockstep loop (each a sync)
 CHECK_EVERY = 4
@@ -311,15 +312,20 @@ def search(g: G.HnswGraph, queries: torch.Tensor, *, entry: int,
         max_steps = ef // max(expand, 1) + 16
     q = queries.to(g.vectors.dtype)
     if upper_ids is not None and metric is not Metric.L1:
-        seeds = _scan_seeds_body(g, q, upper_ids, max(descent_ef, 1), metric)
+        with annotate("route_scan"):
+            seeds = _scan_seeds_body(g, q, upper_ids, max(descent_ef, 1),
+                                     metric)
     else:
-        seeds = _descend_body(g, q, entry, entry_level, 0, metric,
-                              descent_ef=descent_ef)
-    out = _search_layer_body(g, q, seeds, 0, level0=True, ef=ef,
-                             expand=expand, max_steps=max_steps,
-                             metric=metric, skip_deleted=True,
-                             mask_deleted_results=True,
-                             with_counters=with_counters, allowed=allowed)
+        with annotate("descend"):
+            seeds = _descend_body(g, q, entry, entry_level, 0, metric,
+                                  descent_ef=descent_ef)
+    with annotate("beam_level0"):
+        out = _search_layer_body(g, q, seeds, 0, level0=True, ef=ef,
+                                 expand=expand, max_steps=max_steps,
+                                 metric=metric, skip_deleted=True,
+                                 mask_deleted_results=True,
+                                 with_counters=with_counters,
+                                 allowed=allowed)
     if with_counters:
         pool_d, pool_i, hops, evals = out
         return pool_d[:, :k], pool_i[:, :k], hops, evals

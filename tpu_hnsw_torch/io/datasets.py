@@ -1,6 +1,8 @@
-"""Dataset files and synthesis (numpy only).
+"""Dataset files and synthesis (numpy only, plus the native parser).
 
-fvecs/ivecs are the TEXMEX formats used by SIFT/GIST/DEEP. The synthetic
+fvecs/ivecs/bvecs are the TEXMEX formats used by SIFT/GIST/DEEP; the
+readers take the native mmap parser (``io/native.py``) and fall back to
+numpy only on a host without ``g++``. The synthetic
 generators make the same arrays, byte for byte, as
 ``tpu_hnsw/io/datasets.py`` for the same seed: the numpy RNG calls are the
 same calls in the same order, so both packages can be held to one corpus.
@@ -14,7 +16,18 @@ import numpy as np
 
 
 def read_fvecs(path: str, count: int | None = None) -> np.ndarray:
-    """Read .fvecs: each row is [int32 dim, float32 x dim]."""
+    """Read .fvecs: each row is [int32 dim, float32 x dim]. Native first
+    (the mmap'd multithreaded parser), numpy without a compiler."""
+    from tpu_hnsw_torch.io import native
+
+    out = native.read_fvecs_native(path, count)
+    if out is not None:
+        return out
+    return read_fvecs_numpy(path, count)
+
+
+def read_fvecs_numpy(path: str, count: int | None = None) -> np.ndarray:
+    """:func:`read_fvecs` in numpy alone."""
     raw = np.fromfile(path, dtype=np.int32)
     if raw.size == 0:
         return np.zeros((0, 0), np.float32)
@@ -29,6 +42,41 @@ def read_fvecs(path: str, count: int | None = None) -> np.ndarray:
 
 def read_ivecs(path: str, count: int | None = None) -> np.ndarray:
     return read_fvecs(path, count).view(np.int32)
+
+
+def read_bvecs(path: str, count: int | None = None) -> np.ndarray:
+    """Read .bvecs: each row is [int32 dim, uint8 x dim], as f32. Native
+    first, numpy without a compiler."""
+    from tpu_hnsw_torch.io import native
+
+    out = native.read_bvecs_native(path, count)
+    if out is not None:
+        return out
+    return read_bvecs_numpy(path, count)
+
+
+def read_bvecs_numpy(path: str, count: int | None = None) -> np.ndarray:
+    """:func:`read_bvecs` in numpy alone."""
+    with open(path, "rb") as f:
+        dim = int(np.fromfile(f, dtype=np.int32, count=1)[0])
+        row = 4 + dim
+        f.seek(0, os.SEEK_END)
+        n = f.tell() // row
+        if count is not None:
+            n = min(n, count)
+        f.seek(0)
+        raw = np.fromfile(f, dtype=np.uint8, count=n * row).reshape(n, row)
+    return raw[:, 4:].astype(np.float32)
+
+
+def write_bvecs(path: str, x: np.ndarray) -> None:
+    """Write uint8 rows as .bvecs."""
+    x = np.ascontiguousarray(x, dtype=np.uint8)
+    n, d = x.shape
+    out = np.empty((n, 4 + d), dtype=np.uint8)
+    out[:, :4] = np.array([d], np.int32).view(np.uint8)
+    out[:, 4:] = x
+    out.tofile(path)
 
 
 def write_fvecs(path: str, x: np.ndarray) -> None:

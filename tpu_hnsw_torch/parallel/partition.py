@@ -53,6 +53,7 @@ from tpu_hnsw_torch.parallel import collectives as C
 from tpu_hnsw_torch.parallel import kmeans as KM
 from tpu_hnsw_torch.parallel import mesh_build
 from tpu_hnsw_torch.utils.device import entry_device
+from tpu_hnsw_torch.utils.profiling import annotate
 
 
 def _dup_mask_np(ids: np.ndarray) -> np.ndarray:
@@ -708,8 +709,9 @@ class ShardedHnswSearcher:
         nq = q.shape[0]
         d = torch.stack(outs_d, 1).reshape(nq, -1)
         i = torch.stack(outs_i, 1).reshape(nq, -1)
-        d, i = merge_fn(d, i, k, self.group,
-                        dedup=self.parent.has_replicas)
+        with annotate("ici_merge"):
+            d, i = merge_fn(d, i, k, self.group,
+                            dedup=self.parent.has_replicas)
         return (D.score_to_distance(d, cfg.metric).cpu().numpy(),
                 i.cpu().numpy())
 
@@ -1017,19 +1019,21 @@ class ShardedBlockSearcher:
         table; -1 where the query is not routed to the partition."""
         L, b = self.blocks.shape[:2]
         nq = q.shape[0]
-        sc = _centroid_scores(self.centroids.view(L * b, -1),
-                              self.centroids_sq.view(-1), q, q_sq,
-                              self.parent.cfg.metric)
-        sc = sc.view(nq, L, b)
-        if self._padded is not None:
-            sc = torch.where(self._padded, torch.inf, sc)
-        # the block engine's own route top-k (_route_exact, block.py:305):
-        # lax.top_k's order up to 256 blocks, a radix top-k above (the
-        # reference's approx_min_k orders ties arbitrarily there too)
-        bids = T.topk_smallest_fast(sc, probes)[1] + self._offsets
-        if selected is not None:  # an unrouted partition scans no block
-            bids = torch.where(selected[:, :, None], bids, -1)
-        return bids.view(nq * L, probes)
+        with annotate("route"):
+            sc = _centroid_scores(self.centroids.view(L * b, -1),
+                                  self.centroids_sq.view(-1), q, q_sq,
+                                  self.parent.cfg.metric)
+            sc = sc.view(nq, L, b)
+            if self._padded is not None:
+                sc = torch.where(self._padded, torch.inf, sc)
+            # the block engine's own route top-k (_route_exact,
+            # block.py:305): lax.top_k's order up to 256 blocks, a radix
+            # top-k above (the reference's approx_min_k orders ties
+            # arbitrarily there too)
+            bids = T.topk_smallest_fast(sc, probes)[1] + self._offsets
+            if selected is not None:  # an unrouted partition scans no block
+                bids = torch.where(selected[:, :, None], bids, -1)
+            return bids.view(nq * L, probes)
 
     def _fan_out(self, q, selected, *, k: int, probes: int):
         """Every local partition's top-k for every query in one batch:
@@ -1039,27 +1043,30 @@ class ShardedBlockSearcher:
         nq = q.shape[0]
         q_sq = D.squared_norms(q)
         bids = self._route(q, q_sq, selected, probes)
-        qv = q.repeat_interleave(L, 0)
-        qv_sq = q_sq.repeat_interleave(L, 0)
-        gids = self.block_gids.view(L * b, S)
-        if self.two_stage:
-            vals, ids = _expand_blocks_2stage(
-                self.blocks_score.view(L * b, S, -1),
-                self.blocks_sq.view(L * b, S), gids,
-                self.blocks.view(L * b * S, -1), qv, qv_sq, bids, k=k,
-                rerank=max(self.rerank_width, k), metric=metric,
-                score_scale=(None if self.score_scales is None
-                             else self.score_scales.view(-1)))
-        else:
-            vals, ids = _expand_blocks(
-                self.blocks.view(L * b, S, -1), self.blocks_sq.view(L * b, S),
-                gids, qv, qv_sq, bids, k=k, metric=metric)
-        vals, ids = vals.reshape(nq, L * k), ids.reshape(nq, L * k).long()
-        if selected is not None:
-            vals = torch.where(selected.repeat_interleave(k, 1), vals,
-                               torch.inf)
-            ids = torch.where(torch.isfinite(vals), ids, -1)
-        return vals, ids
+        with annotate("expand"):
+            qv = q.repeat_interleave(L, 0)
+            qv_sq = q_sq.repeat_interleave(L, 0)
+            gids = self.block_gids.view(L * b, S)
+            if self.two_stage:
+                vals, ids = _expand_blocks_2stage(
+                    self.blocks_score.view(L * b, S, -1),
+                    self.blocks_sq.view(L * b, S), gids,
+                    self.blocks.view(L * b * S, -1), qv, qv_sq, bids, k=k,
+                    rerank=max(self.rerank_width, k), metric=metric,
+                    score_scale=(None if self.score_scales is None
+                                 else self.score_scales.view(-1)))
+            else:
+                vals, ids = _expand_blocks(
+                    self.blocks.view(L * b, S, -1),
+                    self.blocks_sq.view(L * b, S), gids, qv, qv_sq, bids,
+                    k=k, metric=metric)
+            vals = vals.reshape(nq, L * k)
+            ids = ids.reshape(nq, L * k).long()
+            if selected is not None:
+                vals = torch.where(selected.repeat_interleave(k, 1), vals,
+                                   torch.inf)
+                ids = torch.where(torch.isfinite(vals), ids, -1)
+            return vals, ids
 
     def search_device(self, queries, k: int = 10, ef_search: int = 40,
                       probes: int | None = None, route_k: int | None = None,
@@ -1079,8 +1086,9 @@ class ShardedBlockSearcher:
         selected = self._selected(qraw, route_k)
         q = D.l2_normalize(qraw) if metric.needs_normalized else qraw
         sc, ids = self._fan_out(q, selected, k=k, probes=probes)
-        return merge_fn(sc, ids, k, self.group,
-                        dedup=self.parent.has_replicas)
+        with annotate("ici_merge"):
+            return merge_fn(sc, ids, k, self.group,
+                            dedup=self.parent.has_replicas)
 
     def search(self, queries, k: int = 10, ef_search: int = 40,
                probes: int | None = None, route_k: int | None = None,

@@ -12,6 +12,12 @@ from tpu_hnsw_torch.index.flat import FlatIndex
 from tpu_hnsw_torch.utils.recall import recall_at_k
 
 
+#: chunks of a measure_qps pass (each ``max(64, nq // PIPELINE)`` queries)
+PIPELINE = 8
+#: ef_search values of a sweep
+SWEEP_EFS = (10, 20, 40, 80, 120, 200, 400)
+
+
 def ground_truth(base, queries, k, metric, device=None):
     """Ids of the k nearest rows by :class:`FlatIndex` (its default path:
     scan + exact f32 rerank), on ``device`` (default: the card)."""
@@ -19,7 +25,7 @@ def ground_truth(base, queries, k, metric, device=None):
 
 
 def measure_qps(index, queries, k, ef_search, repeats: int = 10,
-                pipeline: int = 8, min_window_s: float = 0.25,
+                pipeline: int = PIPELINE, min_window_s: float = 0.25,
                 stats_out: dict | None = None, **search_kw):
     """Warm, then the median QPS over ``repeats`` windows of fixed length.
 
@@ -92,7 +98,7 @@ def measure_qps(index, queries, k, ef_search, repeats: int = 10,
     return med, ids
 
 
-def sweep(index, queries, gt, k=10, efs=(10, 20, 40, 80, 120, 200, 400)):
+def sweep(index, queries, gt, k=10, efs=SWEEP_EFS):
     """recall/QPS curve over ef_search (BASELINE config B protocol)."""
     rows = []
     for ef in efs:
