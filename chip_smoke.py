@@ -190,6 +190,11 @@ from tpu_hnsw_torch.utils import evalharness as E
 from tpu_hnsw_torch.utils.evalharness import measure_qps
 from tpu_hnsw_torch.utils.recall import recall_at_k
 
+try:  # PR 4's design, present only while the two are compared
+    from tpu_hnsw_torch.ops import expand_pr4 as PR4
+except ImportError:
+    PR4 = None
+
 N, DIM, NQ, DATA_SEED = 1_000_000, 128, 4096, 42
 BLOCK = 256
 PROBE_GRID = BN.PROBE_GRID  # the port's bench grid (bench.py:160)
@@ -518,6 +523,8 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
                lambda: X.expand_score_reference(*args, **kw), 3, 1),
            "plain_fused_ms": cuda_ms(
                lambda: X.expand_topr_reference(*args, r, **kw), 3, 1)}
+    if PR4 is not None:
+        rec.update(pr4_turns(args, kw, r, fused, every))
     rec["all_bound_ms"], rec["all_bound_by"] = expand_bound(
         bl, bids, kw, 4 * Q * p * S)
     rec["fused_bound_ms"], rec["fused_bound_by"] = expand_bound(
@@ -532,6 +539,34 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
           f"plain {rec['plain_all_ms']:.2f} / {rec['plain_fused_ms']:.2f} ms"
           f" [{card}]", flush=True)
     return rec
+
+
+def pr4_turns(args, kw, r: int, fused, every) -> dict:
+    """PR 4's design against this one on the same inputs, in turns (old,
+    new, new, old; CUDA events over back-to-back calls each): the fused
+    entry and the all-scores entry, and PR 4's keys against these."""
+    def old_fused():
+        return PR4.expand_topr(*args, r, **kw)
+
+    def old_every():
+        return PR4.expand_score(*args, **kw)
+
+    if args[0].dtype == torch.int8:
+        d, pos = fused()
+        od, opos = old_fused()
+        assert torch.equal(T.score_keys(d, pos), T.score_keys(od, opos)), \
+            "PR 4's keys differ"
+    out = {}
+    for name, new, old in (("fused", fused, old_fused),
+                           ("all", every, old_every)):
+        turns = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            turns[who].append(cuda_ms(new if who == "new" else old, 20))
+        out[f"pr4_{name}_ms"] = float(np.mean(turns["old"]))
+        out[f"turns_{name}_ms"] = turns
+    print(f"  PR 4's design in turns: fused {out['turns_fused_ms']}, all "
+          f"scores {out['turns_all_ms']}", flush=True)
+    return out
 
 
 def device_breakdown(fn, card: str, what: str, top: int = 8) -> dict:
@@ -744,7 +779,7 @@ def timed_build(name: str):
 
 def build_phase() -> dict:
     """Both kernel libraries, compiled by two nvcc processes at once."""
-    names = (X.NAME, H.NAME)
+    names = (X.NAME, H.NAME) + ((PR4.NAME,) if PR4 is not None else ())
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         done = {n: pool.submit(timed_build, n) for n in names}
