@@ -7,7 +7,9 @@ plain version):
 
 1. require CUDA, then print the card (``nvidia-smi`` name and power limit);
 2. build both kernel libraries (``expand_score``, ``hamming_scan``) from
-   ``tpu_hnsw_torch/csrc`` with two ``nvcc`` processes started together;
+   ``tpu_hnsw_torch/csrc`` with two ``nvcc`` processes started together,
+   and print each kernel's ``-Xptxas=-v`` registers, spills and shared
+   memory;
    once the host data is made (below), the three merges of
    ``parallel/collectives.py`` under a one-rank NCCL group (a file
    rendezvous on the loopback device), each equal to the local merge;
@@ -46,7 +48,9 @@ plain version):
    equal) on the bids the CLI's saved index routes: search's 4,096
    queries at ef_search 40, eval's 512-query chunks at every probe count
    of its sweep (3 to 105), the bench's 4,096 queries at each grid point
-   up to its probes and, with its 10% filter mask, at twice them;
+   up to its probes and, with its 10% filter mask, at twice them (stage 1
+   also timed at the eval chunk of the most probes, 105: the most
+   candidates a query);
    ``planner.calibrate()`` (five finite constants; its 2,048-query stage-1
    call on random bids against the plain version), each estimator beside
    the bench's QPS, the two constants ``planner.anchor`` solves from this
@@ -189,11 +193,6 @@ from tpu_hnsw_torch.utils import profiling
 from tpu_hnsw_torch.utils import evalharness as E
 from tpu_hnsw_torch.utils.evalharness import measure_qps
 from tpu_hnsw_torch.utils.recall import recall_at_k
-
-try:  # PR 4's design, present only while the two are compared
-    from tpu_hnsw_torch.ops import expand_pr4 as PR4
-except ImportError:
-    PR4 = None
 
 N, DIM, NQ, DATA_SEED = 1_000_000, 128, 4096, 42
 BLOCK = 256
@@ -523,8 +522,6 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
                lambda: X.expand_score_reference(*args, **kw), 3, 1),
            "plain_fused_ms": cuda_ms(
                lambda: X.expand_topr_reference(*args, r, **kw), 3, 1)}
-    if PR4 is not None:
-        rec.update(pr4_turns(args, kw, r, fused, every))
     rec["all_bound_ms"], rec["all_bound_by"] = expand_bound(
         bl, bids, kw, 4 * Q * p * S)
     rec["fused_bound_ms"], rec["fused_bound_by"] = expand_bound(
@@ -539,34 +536,6 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
           f"plain {rec['plain_all_ms']:.2f} / {rec['plain_fused_ms']:.2f} ms"
           f" [{card}]", flush=True)
     return rec
-
-
-def pr4_turns(args, kw, r: int, fused, every) -> dict:
-    """PR 4's design against this one on the same inputs, in turns (old,
-    new, new, old; CUDA events over back-to-back calls each): the fused
-    entry and the all-scores entry, and PR 4's keys against these."""
-    def old_fused():
-        return PR4.expand_topr(*args, r, **kw)
-
-    def old_every():
-        return PR4.expand_score(*args, **kw)
-
-    if args[0].dtype == torch.int8:
-        d, pos = fused()
-        od, opos = old_fused()
-        assert torch.equal(T.score_keys(d, pos), T.score_keys(od, opos)), \
-            "PR 4's keys differ"
-    out = {}
-    for name, new, old in (("fused", fused, old_fused),
-                           ("all", every, old_every)):
-        turns = {"old": [], "new": []}
-        for who in ("old", "new", "new", "old"):
-            turns[who].append(cuda_ms(new if who == "new" else old, 20))
-        out[f"pr4_{name}_ms"] = float(np.mean(turns["old"]))
-        out[f"turns_{name}_ms"] = turns
-    print(f"  PR 4's design in turns: fused {out['turns_fused_ms']}, all "
-          f"scores {out['turns_all_ms']}", flush=True)
-    return out
 
 
 def device_breakdown(fn, card: str, what: str, top: int = 8) -> dict:
@@ -777,9 +746,28 @@ def timed_build(name: str):
     return path, log, time.perf_counter() - t0
 
 
+def ptxas_summary(log: str) -> dict:
+    """Registers, spill bytes and shared memory of each kernel entry in an
+    nvcc -Xptxas=-v log, by mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif name and "spill stores" in line:
+            out[name]["spill_bytes"] = [int(w) for w in line.replace(
+                ",", " ").split() if w.isdigit()][1:3]
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            out[name]["registers"] = int(words[words.index("Used") + 1])
+            if "smem" in words:
+                out[name]["smem_bytes"] = int(words[words.index("smem") - 2])
+    return out
+
+
 def build_phase() -> dict:
     """Both kernel libraries, compiled by two nvcc processes at once."""
-    names = (X.NAME, H.NAME) + ((PR4.NAME,) if PR4 is not None else ())
+    names = (X.NAME, H.NAME)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         done = {n: pool.submit(timed_build, n) for n in names}
@@ -789,6 +777,8 @@ def build_phase() -> dict:
               flush=True)
         if log:
             print(log.strip(), flush=True)
+            print(f"{name} -Xptxas=-v per kernel: "
+                  f"{json.dumps(ptxas_summary(log))}", flush=True)
     wall = time.perf_counter() - t0
     print(f"both kernel libraries built in {wall:.2f} s", flush=True)
     return {n: b[2] for n, b in built.items()}
@@ -1038,7 +1028,7 @@ def bench_phase(card: str) -> dict:
 
 
 def cli_bench_shapes(idx_dir: str, queries: np.ndarray, bench: dict,
-                     card: str, dev: torch.device) -> list:
+                     card: str, dev: torch.device, timings: list) -> list:
     """expand_topr against its plain version at the shapes the CLI and the
     bench launched it at, on the bids that the CLI's saved 1M x 128 index
     routes (the bench builds that index from the same rows and queries):
@@ -1046,7 +1036,9 @@ def cli_bench_shapes(idx_dir: str, queries: np.ndarray, bench: dict,
     (``measure_qps``'s pipeline) at every probe count of its sweep; the
     bench's 4,096-query calls at each grid point up to its probes and, with
     its 10% filter mask, at twice them. The stage-1 width is the index's
-    (rerank_width, k 10); int8 keys exactly equal."""
+    (rerank_width, k 10); int8 keys exactly equal. Stage 1 is also timed
+    (``stage1_timing``, appended to ``timings``) at the eval chunk of the
+    most probes, the shape with the most candidates a query."""
     idx = BlockHnswIndex.load(idx_dir, device=dev)
     nq = len(queries)
     q = torch.from_numpy(queries).to(dev)
@@ -1062,6 +1054,7 @@ def cli_bench_shapes(idx_dir: str, queries: np.ndarray, bench: dict,
     cases.append((f"bench filtered, probes {2 * probes}", nq, 2 * probes,
                    BN.filter_mask(idx.n_total)))
     recs = []
+    most = max(p for what, _, p, _ in cases if what.startswith("cli eval"))
     for what, n_q, p, mask in cases:
         args, kw = routed_args(idx, q[:n_q], p)
         if mask is not None:
@@ -1070,6 +1063,10 @@ def cli_bench_shapes(idx_dir: str, queries: np.ndarray, bench: dict,
                                   f"{what} (routed bids)", rs=(r,),
                                   nqs=(n_q,)))
         recs[-1]["p"] = p
+        if what.startswith("cli eval") and p == most:
+            timings.append(stage1_timing(args, kw, r, card,
+                                         f"{what}, 1M x 128 CLI index, "
+                                         "routed bids"))
     del idx
     torch.cuda.empty_cache()
     return recs
@@ -2984,7 +2981,8 @@ def run(host: HostData) -> None:
         # comparison launches: after the counted runs
         with phase("CLI and bench shapes"):
             topr.extend(cli_bench_shapes(os.path.join(tmp, CLI_INDEX),
-                                         queries, bench["json"], card, dev))
+                                         queries, bench["json"], card, dev,
+                                         timings))
     with phase("planner"):
         plan = planner_phase(base, bench["json"], card)
         topr.extend(plan.pop("topr"))

@@ -396,6 +396,32 @@ def test_row_info_alignment_matches_the_copy_width(S, misfits):
             X._check_row_info_aligned("expand_topr", S, *ops)
 
 
+@pytest.mark.parametrize("P,Q,C", [(1, 1, 1), (8192, 1024, 320),
+                                   (12345, 150, 1200)])
+def test_scratch_offsets_are_aligned_and_disjoint(P, Q, C):
+    """The launch scratch of either entry: the work items 16-byte aligned,
+    the per-query keys 8-byte aligned, every region inside the buffer and
+    none overlapping; the grouping regions sit at the same offsets."""
+    sizes = {"gpair": 4 * P, "items": 16 * P, "gtab": 4 * X._GTAB_INTS,
+             "gbid": 4 * P, "thresh": 8 * Q, "count": 4 * P,
+             "cand": 8 * Q * C}
+    fused, _ = X._scratch_offsets(P, Q, C)
+    every, _ = X._scratch_offsets(P)
+    assert set(fused) == set(sizes) - {"gbid"}
+    assert set(every) == {"gpair", "items", "gtab", "gbid"}
+    for off, total in (X._scratch_offsets(P, Q, C), X._scratch_offsets(P)):
+        assert off["items"] % 16 == 0
+        assert all(off[k] % 8 == 0 for k in ("thresh", "cand") if k in off)
+        spans = sorted((off[k], off[k] + sizes[k]) for k in off)
+        assert spans[0][0] == 0 and spans[-1][1] == total
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert all(fused[k] == every[k] for k in ("gpair", "items", "gtab"))
+    # a pair keeps at most min(2R, S) keys
+    assert [X._pair_slots(R, 256) for R in (1, 40, 100, 128)] == [
+        2, 80, 200, 256]
+    assert X._pair_slots(30, 30) == 30
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -511,9 +537,9 @@ def test_expand_one_hot_fragments_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q,p", [(200, 1), (300, 2)])
 def test_expand_one_block_probed_by_every_query_on_card(Q, p):
-    """Every query probes block 3, so its run spans many CTAs (and, with a
-    second random probe, runs of other blocks sit between): exact against
-    the plain version."""
+    """Every query probes block 3, so its run spans many work items of 32
+    pairs, on as many CTAs (and, with a second random probe, runs of other
+    blocks sit between): exact against the plain version."""
     dev = _card()
     rng = np.random.default_rng(Q)
     bids = np.concatenate([np.full((Q, 1), 3),
@@ -523,7 +549,7 @@ def test_expand_one_block_probed_by_every_query_on_card(Q, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [8, 12])  # 12 x 100 keys: the torch.topk merge
+@pytest.mark.parametrize("p", [8, 12])  # 12 x 100 keys: over 1,024 a query
 def test_expand_routed_bids_with_invalid_on_card(p):
     """Duplicate-free per-query bids (as routing gives) with -1 and B
     entries: out-of-range pairs score +inf on every row, the rest exact."""
@@ -628,3 +654,83 @@ def test_expand_topr_float_on_card(dtype, dp, rtol, metric):
     must = plain < (wd[:, -1] - tol)[:, None]
     got = torch.zeros_like(must).scatter_(1, pos, True)
     assert (got | ~must).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,r", [(27, 100), (105, 40)])
+def test_expand_topr_many_candidates_on_card(p, r):
+    """p * min(r, S) above 1,024 keys a query (the sparse path at rerank_k
+    100, the CLI eval's chunks at 105 probes), with -1 and out-of-range
+    bids and a filter mask: keys exactly equal to the plain version's."""
+    dev = _card()
+    rng = np.random.default_rng(p)
+    B, Q = 300, 120
+    bids = np.stack([rng.permutation(B)[:p] for _ in range(Q)])
+    bids[rng.random((Q, p)) < 0.05] = -1
+    bids[3, 5] = B
+    args, kw = _int8_args(dev, p, B, 256, 128, Q, p, bids=bids)
+    _assert_int8_exact(args, kw, rs=(r,))
+    kw["allowed"] = _t(rng.random((B, 256)) < 0.3).to(dev)
+    _assert_int8_exact(args, kw, rs=(r,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,p", [(1024, 4), (76, 1)])
+def test_expand_topr_fewer_items_than_sms_on_card(Q, p):
+    """Shapes whose work items are few beside the card's SMs (config D's
+    partition shape; one ragged probe) and whose per-query keys number
+    exactly r or fewer: keys exactly equal, r in {1, 40, 128}."""
+    dev = _card()
+    args, kw = _int8_args(dev, Q + p, 2000, 256, 96, Q, p)
+    _assert_int8_exact(args, kw, rs=(1, 40, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_expand_topr_all_equal_scores_on_card(metric):
+    """Every row is the same vector, so a query's scores all tie and its
+    top r is its r lowest live positions, across pairs that race on the
+    query's threshold (one block probed by every query among them): keys
+    exactly equal to the plain version's."""
+    dev = _card()
+    rng = np.random.default_rng(17)
+    B, S, dp, Q, p = 64, 256, 128, 300, 8
+    row = rng.integers(-20, 21, size=dp).astype(np.int8)
+    blocks = torch.from_numpy(np.broadcast_to(row, (B, S, dp)).copy()).to(dev)
+    ids = np.arange(B * S).reshape(B, S)
+    block_ids = _t(np.where(rng.random((B, S)) < 0.2, -1, ids).astype(
+        np.int32)).to(dev)
+    q = _t(rng.normal(size=(Q, dp)).astype(np.float32)).to(dev)
+    q8, q_scl = _quantize_rows(q)
+    bids = np.stack([rng.permutation(B)[:p] for _ in range(Q)])
+    bids[:, 0] = 7
+    xf = blocks.float()
+    args = [blocks, (xf * xf).sum(-1), block_ids, q, (q * q).sum(1),
+            _t(bids.astype(np.int64)).to(dev), Metric(metric)]
+    kw = dict(q8=q8, q_scale=q_scl, score_scale=torch.ones(B, device=dev))
+    _assert_int8_exact(args, kw, rs=(1, 40, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2, 5])
+def test_expand_topr_three_patterns_many_probes_on_card(seed):
+    """Rows drawn from 3 patterns over 3 blocks of 200 rows, 27 probes a
+    query with repeats: every pair holds the same 3 scores, so ties decide
+    the answer and a query's final threshold often equals its r-th key
+    exactly (the select then keeps exactly r candidates): keys exactly
+    equal to the plain version's."""
+    dev = _card()
+    rng = np.random.default_rng(seed)
+    B, S, dp, Q, p = 3, 200, 64, 1000, 27
+    pats = rng.integers(-20, 21, size=(3, dp)).astype(np.int8)
+    blocks = _t(pats[rng.integers(0, 3, size=(B, S))]).to(dev)
+    scale = _t(rng.uniform(0.005, 0.02, size=B).astype(np.float32)).to(dev)
+    xf = blocks.float() * scale[:, None, None]
+    q = _t(rng.normal(size=(Q, dp)).astype(np.float32)).to(dev)
+    q8, q_scl = _quantize_rows(q)
+    args = [blocks, (xf * xf).sum(-1),
+            torch.arange(B * S, dtype=torch.int32, device=dev).reshape(B, S),
+            q, (q * q).sum(1), _t(rng.integers(0, B, size=(Q, p))).to(dev),
+            Metric.L2]
+    _assert_int8_exact(args, dict(q8=q8, q_scale=q_scl, score_scale=scale),
+                       rs=(1, 40, 128))

@@ -41,11 +41,16 @@ TOPR_MAX_S = 256
 
 _P = ctypes.c_void_p
 _I, _LL = ctypes.c_int, ctypes.c_longlong
+# mode, vec; blocks .. bids and the grouping scratch (12 pointers)
 _COMMON = [_I, _I] + [_P] * 12
-_SCORE_ARGS = _COMMON + [_LL, _LL, _I, _I, _I, _I, _P]
-_TOPR_ARGS = _COMMON + [_LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _P]
+_SIZES = [_LL, _LL, _I, _I, _I, _I]  # n_blocks, pairs, p, S, row bytes, l2
+_SCORE_ARGS = _COMMON + [_P] * 2 + _SIZES + [_P]
+_TOPR_ARGS = _COMMON + [_P] * 3 + _SIZES + [_I, _P, _P, _I, _P]
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MERGE_MAX_C = 1024    # candidates a query the in-kernel merge takes
+# int32 entries of the grouping table (csrc: 2 * kGroupCtas)
+_GTAB_INTS = 128
+_ERRORS = {10001: "the CUDA driver has no cuTensorMapEncodeTiled",
+           10002: "cuTensorMapEncodeTiled refused the rows' tensor map"}
 # elements of the gathered [chunk, p, S, dp] operand per step of the plain
 # version (bounds its temporaries at main-path shapes)
 _REF_CHUNK_ELEMS = 1 << 27
@@ -129,9 +134,10 @@ def _check(name, t, dtype, shape, device):
 
 
 def _check_row_info_aligned(entry, S, blocks_sq, block_ids, allowed):
-    """The scorer copies a run's row ids, norms and filter bytes with
-    cp.async, 16 bytes a copy when S % 16 == 0 and else 4 (the filter bytes
-    only when S % 4 == 0): each source must be aligned to its copy."""
+    """The scorer copies a block's row ids, norms and filter bytes 16 bytes
+    at a time (bulk copies in the fused entry) when S % 16 == 0 and else 4
+    (the filter bytes only when S % 4 == 0): each source must be aligned to
+    its copy."""
     width = 16 if S % 16 == 0 else 4
     tensors = [("blocks_sq", blocks_sq), ("block_ids", block_ids)]
     if allowed is not None and S % 4 == 0:
@@ -147,11 +153,44 @@ def _library():
                                      "expand_topr_launch": _TOPR_ARGS})
 
 
+def _scratch_offsets(P: int, Q: int = 0, C: int = 0) -> tuple[dict, int]:
+    """Byte offsets of a launch's scratch in one buffer: the pairs grouped
+    by block (int32 ``[P]``), the work items (int4 ``[P]``, 16-byte
+    aligned) and the grouping table (int32 ``[_GTAB_INTS]``); for the
+    all-scores entry also the grouped pairs' block ids (int32 ``[P]``);
+    with ``C = p * cap`` candidate slots a query (the fused entry) instead
+    each query's threshold key (uint64 ``[Q]``), each pair's candidate
+    count (int32 ``[P]``) and each pair's candidate keys (uint64 ``[P,
+    cap]``, that is ``[Q, C]``). Returns (offsets, total bytes)."""
+    def up(n, a):
+        return (n + a - 1) // a * a
+
+    off = {"gpair": 0, "items": up(4 * P, 16)}
+    off["gtab"] = off["items"] + 16 * P
+    end = off["gtab"] + 4 * _GTAB_INTS
+    if not C:
+        off["gbid"] = end
+        end += 4 * P
+    else:
+        off["thresh"] = up(end, 8)
+        off["count"] = off["thresh"] + 8 * Q
+        off["cand"] = up(off["count"] + 4 * P, 8)
+        end = off["cand"] + 8 * Q * C
+    return off, end
+
+
+def _pair_slots(R: int, S: int) -> int:
+    """Candidate slots a (query, probe) pair has in the fused entry: it
+    keeps at most ``min(2R, S)`` keys (csrc: ``Args::cap``)."""
+    return min(2 * R, S)
+
+
 def _operands(entry, blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
-              q8, q_scale, score_scale, allowed):
+              q8, q_scale, score_scale, allowed, C: int = 0):
     """Checked launch operands shared by both entries: (mode, copy width,
-    the pointer arguments of either C entry through the grouping scratch,
-    tensors to keep alive, (B, Q, p, S, row bytes))."""
+    the pointer arguments of either C entry through its scratch (with
+    ``C``, the fused entry's), tensors to keep alive, (B, Q, p, S, row
+    bytes))."""
     if blocks.device.type != "cuda":
         raise ValueError(f"{entry}: no kernel for {blocks.device}")
     if blocks.dtype not in _MODES:
@@ -189,14 +228,19 @@ def _operands(entry, blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
                  and q_op.data_ptr() % 16 == 0) else 4
     P = Q * p
     flat = bids.reshape(-1).to(torch.int64).contiguous()
-    # the pairs grouped by block in the launch (a counting sort on the
-    # device: no host synchronisation)
-    grouped = torch.empty(2 * P, dtype=torch.int32, device=dev)
-    keep = (q_op, flat, grouped)  # alive until the launch is enqueued
+    # the pairs grouped by block and cut into work items in the launch (a
+    # counting sort on the device: no host synchronisation)
+    off, nbytes = _scratch_offsets(P, Q, C)
+    work = torch.empty((nbytes + 7) // 8, dtype=torch.int64, device=dev)
+    keep = (q_op, flat, work)  # alive until the launch is enqueued
+    at = work.data_ptr()
     args = [blocks.data_ptr(), blocks_sq.data_ptr(), block_ids.data_ptr(),
             None if allowed is None else allowed.data_ptr(),
             q_op.data_ptr(), q_sq.data_ptr(), qs_ptr, ss_ptr,
-            flat.data_ptr(), grouped.data_ptr(), grouped.data_ptr() + 4 * P]
+            flat.data_ptr()] + [at + off[k] for k in ("gpair", "items",
+                                                       "gtab")]
+    args += [at + off[k] for k in (("thresh", "count", "cand") if C
+                                    else ("gbid",))]
     return _MODES[blocks.dtype], vec, args, keep, (B, Q, p, S, row_bytes)
 
 
@@ -206,7 +250,8 @@ def _launch(fn: str, dev, args) -> None:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, fn)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{fn} failed: cudaError {err}")
+        raise RuntimeError(f"{fn} failed: "
+                           f"{_ERRORS.get(err, f'cudaError {err}')}")
 
 
 def expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
@@ -247,9 +292,10 @@ def expand_topr(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
     ``[Q, r]`` f32 ascending, positions ``[Q, r]`` int64 into the query's
     ``[p * S]`` expansion), ordered by (score, position). Arguments as
     :func:`expand_score`; ``fused_topr(r, S)`` must hold. On the card each
-    (query, probe) pair keeps its ``min(r, S)`` smallest keys in the kernel
-    and a merge kernel orders each query's ``p`` lists (``torch.topk``
-    where they hold more than ``_MERGE_MAX_C`` keys)."""
+    (query, probe) pair keeps only its keys at or below its query's running
+    bound on the r-th key (at most ``_pair_slots(r, S)``), and a select
+    kernel orders each query's ``min(r, p * S)`` smallest, whatever their
+    count."""
     global LAUNCHES, TOPR_LAUNCHES
     S = blocks.shape[1]
     if not fused_topr(r, S):
@@ -259,25 +305,19 @@ def expand_topr(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
         return expand_topr_reference(
             blocks, blocks_sq, block_ids, q, q_sq, bids, metric, r, q8=q8,
             q_scale=q_scale, score_scale=score_scale, allowed=allowed)
+    p = bids.shape[1]
+    R = min(r, S)
     mode, vec, args, _keep, (B, Q, p, S, row_bytes) = _operands(
         "expand_topr", blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
-        q8, q_scale, score_scale, allowed)
-    R = min(r, S)
+        q8, q_scale, score_scale, allowed, C=p * _pair_slots(R, S))
     rq = min(r, p * S)
     dev = blocks.device
-    keys = torch.empty((Q, p * R), dtype=torch.int64, device=dev)
-    merge = p * R <= _MERGE_MAX_C  # else more candidates than it holds
     top = (torch.empty((Q, rq), dtype=torch.float32, device=dev),
            torch.empty((Q, rq), dtype=torch.int64, device=dev))
     _launch("expand_topr_launch", dev,
             [mode, vec] + args
-            + [keys.data_ptr(), B, Q * p, p, S, row_bytes,
-               int(metric is Metric.L2), R]
-            + ([top[0].data_ptr(), top[1].data_ptr()] if merge
-               else [None, None]) + [rq])
+            + [B, Q * p, p, S, row_bytes, int(metric is Metric.L2), R,
+               top[0].data_ptr(), top[1].data_ptr(), rq])
     LAUNCHES += 1
     TOPR_LAUNCHES += 1
-    if merge:
-        return top
-    return T.decode_score_keys(torch.topk(keys, rq, dim=1, largest=False,
-                                          sorted=True).values)
+    return top
