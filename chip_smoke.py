@@ -18,9 +18,11 @@ plain version):
    uniform random bids): ``expand_score`` at p in {8, 32} in f32, bf16 and
    int8, L2 and IP, plus the filter mask (int8, p=8); ``expand_topr``
    (int8: keys exactly equal, L2 and IP, masked and not, r in {1, 40, 100,
-   128}, Q=1024 and a ragged 76; f32 and bf16 at r=40 within RTOL); time
-   both entries and the earlier design's composite (all scores, then
-   ``torch.topk``) with CUDA events;
+   128}, Q=1024 and a ragged 76; f32 and bf16 at r=40 within RTOL), here
+   and at every later shape on each route the shape allows (the ring, and
+   the grouped route where a query's keys fit its merge); time both
+   entries, the fused entry's routes in turns, and the earlier design's
+   composite (all scores, then ``torch.topk``) with CUDA events;
 4. the block path at full size: ``BlockHnswIndex`` over
    ``synthetic_clustered(1_000_000, 128, n_queries=4096, seed=42)``, built
    from host input and from a CUDA tensor, graded against the port's
@@ -142,7 +144,8 @@ launches made to compare a kernel with its plain version are not
 counted. Stage 1 of the block, lifecycle, CLI (search and eval), bench,
 planner (``calibrate``), graph-routed, partitioned (centroid, config D and
 stacked config D), sparse and binary paths must launch ``expand_topr``
-(stacked config D once a chunk); the
+(stacked config D once a chunk), and over all of them each of its two
+routes (``topr_route``) must have been launched; the
 lifecycle's filtered ``search_iterative`` and the sparse path at rerank_k
 200 widen past the fused limit and must launch ``expand_score`` too. The
 lockstep build launches no kernel (the graph engine is torch ops); its
@@ -412,36 +415,42 @@ def expand_bound(bl, bids, kw, out_bytes: int) -> tuple[float, str]:
 
 
 def topr_check(args, kw, dtype: str, r: int, plain, cscale: float) -> dict:
-    """expand_topr against expand_topr_reference (the keyed top-r of the
-    plain scores ``plain``) on the same card tensors: int8 keys exactly
-    equal; f32 and bf16 within RTOL of the cancellation scale at the
-    returned positions and at the r-th score, and every plain position
-    below the r-th score minus that bound returned."""
-    d, pos = X.expand_topr(*args, r, **kw)
+    """expand_topr on each route the shape allows against
+    expand_topr_reference (the keyed top-r of the plain scores ``plain``)
+    on the same card tensors: int8 keys exactly equal; f32 and bf16 within
+    RTOL of the cancellation scale at the returned positions and at the
+    r-th score, and every plain position below the r-th score minus that
+    bound returned."""
     wd, wpos = X.topr_of_scores(plain, r)
-    torch.cuda.synchronize()
     Q = plain.shape[0]
     flat = plain.reshape(Q, -1)
-    at = flat.gather(1, pos)
-    fin = torch.isfinite(at)
-    assert torch.equal(fin, torch.isfinite(d)), "inf pattern"
-    err = (d - at).abs()[fin]
-    rec = {"r": r, "Q": Q,
-           "max_abs_err": err.max().item() if err.numel() else 0.0}
-    if dtype == "int8":
-        rec["exact_keys"] = torch.equal(T.score_keys(d, pos),
-                                        T.score_keys(wd, wpos))
-        assert rec["exact_keys"], rec
-        return rec
-    rtol = RTOL[dtype]
-    assert (err <= rtol * (cscale + at.abs()[fin])).all(), rec
-    tol = rtol * (cscale + wd[:, -1].abs())
-    kth = torch.isfinite(wd[:, -1])
-    assert ((d[:, -1] - wd[:, -1]).abs()[kth] <= tol[kth]).all(), rec
-    must = flat < (wd[:, -1] - tol)[:, None]
-    got = torch.zeros_like(must).scatter_(1, pos, True)
-    assert (got | ~must).all(), rec
-    rec["within_rtol"] = rtol
+    routes = topr_routes(args[0], args[5], r)
+    rec = {"r": r, "Q": Q, "routes": list(routes),
+           "route": chosen_route(args[0], args[5], r), "max_abs_err": 0.0}
+    for route in routes:
+        d, pos = X.expand_topr(*args, r, route=route, **kw)
+        torch.cuda.synchronize()
+        at = flat.gather(1, pos)
+        fin = torch.isfinite(at)
+        assert torch.equal(fin, torch.isfinite(d)), f"inf pattern, {route}"
+        err = (d - at).abs()[fin]
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 err.max().item() if err.numel() else 0.0)
+        if dtype == "int8":
+            rec["exact_keys"] = torch.equal(T.score_keys(d, pos),
+                                            T.score_keys(wd, wpos))
+            assert rec["exact_keys"], (route, rec)
+            continue
+        rtol = RTOL[dtype]
+        assert (err <= rtol * (cscale + at.abs()[fin])).all(), (route, rec)
+        tol = rtol * (cscale + wd[:, -1].abs())
+        kth = torch.isfinite(wd[:, -1])
+        assert ((d[:, -1] - wd[:, -1]).abs()[kth] <= tol[kth]).all(), \
+            (route, rec)
+        must = flat < (wd[:, -1] - tol)[:, None]
+        got = torch.zeros_like(must).scatter_(1, pos, True)
+        assert (got | ~must).all(), (route, rec)
+        rec["within_rtol"] = rtol
     return rec
 
 
@@ -462,9 +471,12 @@ def topr_variants(args, kw, dtype, card, cscale, what: str,
             recs.append(rec)
         del plain
     held = "keys exactly equal" if dtype == "int8" else "within RTOL"
+    routes = sorted({(rec["r"], "+".join(rec["routes"]), rec["route"])
+                     for rec in recs})
     print(f"expand_topr {dtype} {args[-1].value} {what}"
           f"{' masked' if 'allowed' in kw else ''}: r {list(rs)} x Q "
-          f"{list(nqs)} {held} to the plain version [{card}]", flush=True)
+          f"{list(nqs)} {held} to the plain version on routes (r, held, "
+          f"chosen) {routes} [{card}]", flush=True)
     return recs
 
 
@@ -495,11 +507,15 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
     CUDA events over back-to-back calls (cuda_ms, as every kernel's ms),
     the device span of one call beside them (device_ms, which leaves out
     the host's gaps), bounds, the plain version's ms, distinct blocks and
-    reuse."""
+    reuse. The fused entry's routes are timed in turns (grouped, ring,
+    ring, grouped; the mean of each route's two) where both apply;
+    ``fused_ms`` is the route topr_route picks."""
     bl, bids = args[0], args[5]
     Q, p = bids.shape
     S = bl.shape[1]
     distinct = torch.unique(bids).numel()
+    routes = topr_routes(bl, bids, r)
+    chosen = chosen_route(bl, bids, r)
 
     def composite():
         return torch.topk(X.expand_score(*args, **kw).reshape(Q, -1), r,
@@ -511,9 +527,17 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
     def every():
         return X.expand_score(*args, **kw)
 
+    turns = {route: [] for route in routes}
+    for route in routes + routes[::-1]:
+        turns[route].append(cuda_ms(
+            lambda: X.expand_topr(*args, r, route=route, **kw), 20))
+    route_ms = {route: float(np.mean(v)) for route, v in turns.items()}
     rec = {"of": what, "Q": Q, "p": p, "S": S, "d": bl.shape[2], "r": r,
            "distinct_blocks": distinct, "reuse": Q * p / distinct,
-           "all_ms": cuda_ms(every, 20), "fused_ms": cuda_ms(fused, 20),
+           "route": chosen, "grouped_ms": route_ms.get("grouped"),
+           "ring_ms": route_ms["ring"], "route_turns_ms": turns,
+           "chosen_is_faster": route_ms[chosen] == min(route_ms.values()),
+           "all_ms": cuda_ms(every, 20), "fused_ms": route_ms[chosen],
            "composite_ms": cuda_ms(composite, 20),
            "all_device_ms": device_ms(every),
            "fused_device_ms": device_ms(fused),
@@ -526,11 +550,15 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
         bl, bids, kw, 4 * Q * p * S)
     rec["fused_bound_ms"], rec["fused_bound_by"] = expand_bound(
         bl, bids, kw, 8 * Q * r)
+    grouped = ("n/a (keys over the merge)" if rec["grouped_ms"] is None
+               else f"{rec['grouped_ms']:.4f}")
     print(f"stage 1 {what}: Q={Q} p={p} d={rec['d']} r={r}, {distinct} "
           f"distinct blocks (reuse {rec['reuse']:.2f}); CUDA-event ms: all "
           f"scores {rec['all_ms']:.4f} (bound {rec['all_bound_ms']:.4f}), "
-          f"fused top-r {rec['fused_ms']:.4f} (bound "
-          f"{rec['fused_bound_ms']:.4f}), composite {rec['composite_ms']:.4f};"
+          f"fused top-r {rec['fused_ms']:.4f} on the {chosen} route (bound "
+          f"{rec['fused_bound_ms']:.4f}; in turns grouped {grouped}, ring "
+          f"{rec['ring_ms']:.4f}, chosen faster: "
+          f"{rec['chosen_is_faster']}), composite {rec['composite_ms']:.4f};"
           f" device span ms {rec['all_device_ms']:.4f} / "
           f"{rec['fused_device_ms']:.4f} / {rec['composite_device_ms']:.4f}; "
           f"plain {rec['plain_all_ms']:.2f} / {rec['plain_fused_ms']:.2f} ms"
@@ -580,9 +608,29 @@ def device_breakdown(fn, card: str, what: str, top: int = 8) -> dict:
 
 
 def expand_launches() -> dict:
-    """Launches of each expand entry since the counters were reset."""
+    """Launches of each expand entry since the counters were reset, and of
+    each route of the fused one."""
     return {"expand_score": X.LAUNCHES - X.TOPR_LAUNCHES,
-            "expand_topr": X.TOPR_LAUNCHES}
+            "expand_topr": X.TOPR_LAUNCHES,
+            **{f"expand_topr_{k}": v
+               for k, v in X.TOPR_ROUTE_LAUNCHES.items()}}
+
+
+def reset_expand_counts() -> None:
+    """Sets every expand launch counter to 0."""
+    X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    for k in X.TOPR_ROUTE_LAUNCHES:
+        X.TOPR_ROUTE_LAUNCHES[k] = 0
+
+
+def topr_routes(bl, bids, r: int) -> tuple:
+    """The fused entry's routes at this shape (grouped first)."""
+    return X.topr_routes(bids.shape[1], r, bl.shape[1])
+
+
+def chosen_route(bl, bids, r: int) -> str:
+    return X.topr_route(bids.shape[0], bids.shape[1], r, bl.shape[0],
+                        bl.shape[1], bl.shape[2] * bl.element_size())
 
 
 def routed_args(idx, q, probes: int):
@@ -897,7 +945,10 @@ CLI_RUNNER = (
     "finally:\n"
     "    print('LAUNCHES ' + json.dumps({\n"
     "        'expand_score': X.LAUNCHES - X.TOPR_LAUNCHES,\n"
-    "        'expand_topr': X.TOPR_LAUNCHES}), file=sys.stderr, flush=True)\n")
+    "        'expand_topr': X.TOPR_LAUNCHES,\n"
+    "        **{'expand_topr_' + k: v\n"
+    "           for k, v in X.TOPR_ROUTE_LAUNCHES.items()}}),\n"
+    "          file=sys.stderr, flush=True)\n")
 
 
 def run_cli(args: list, timeout: float) -> dict:
@@ -965,7 +1016,7 @@ def cli_phase(base: np.ndarray, gt: np.ndarray, paths: dict, tmp: str,
               card: str) -> dict:
     """``tpu_hnsw_torch.cli`` build --type block, search and eval (with the
     oracle's ground truth as .ivecs), each a subprocess on the card."""
-    out = {"launches": {"expand_score": 0, "expand_topr": 0}}
+    out = {"launches": dict.fromkeys(expand_launches(), 0)}
     gt_path = os.path.join(tmp, "gt.ivecs")
     DS.write_ivecs(gt_path, gt.astype(np.int32))
     idx_dir = os.path.join(tmp, CLI_INDEX)
@@ -1083,7 +1134,7 @@ def planner_phase(base: np.ndarray, bench: dict, card: str) -> dict:
     and picks flat, while with the gate off the estimators, at the
     defaults and at the calibrated rates, pick the fastest; that case is
     recorded as an expected failure."""
-    X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    reset_expand_counts()
     t0 = time.perf_counter()
     raw = PL.calibrate()
     out = {"calibrate_s": time.perf_counter() - t0,
@@ -1705,7 +1756,8 @@ def binary_phase(card: str, dev: torch.device, data) -> dict:
     torch.cuda.empty_cache()
 
     # count only the binary path's launches
-    H.LAUNCHES = H.TOPK_LAUNCHES = X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    H.LAUNCHES = H.TOPK_LAUNCHES = 0
+    reset_expand_counts()
     t0 = time.perf_counter()
     gt_d, gt = BinaryFlatIndex(xp, metric="hamming").search(qp, k=10)
     out["flat_oracle_s"] = time.perf_counter() - t0
@@ -1786,8 +1838,9 @@ def binary_phase(card: str, dev: torch.device, data) -> dict:
     out["launches"] = {"hamming_scan": H.LAUNCHES - H.TOPK_LAUNCHES,
                        "hamming_topk": H.TOPK_LAUNCHES, **expand_launches()}
     # both indexes keep r <= 128 rows a query: stage 1 is the fused entry
-    assert min(v for k, v in out["launches"].items()
-               if k != "expand_score") > 0, out["launches"]
+    # (on whichever route topr_route picks)
+    assert min(out["launches"][k] for k in (
+        "hamming_scan", "hamming_topk", "expand_topr")) > 0, out["launches"]
     out["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"binary path launches {json.dumps(out['launches'])}, peak device "
           f"memory {out['peak_mem_GB']:.2f} GB [{card}]", flush=True)
@@ -2141,7 +2194,7 @@ def config_d_phase(card: str, dev: torch.device, data) -> dict:
     cscale = (args[1].max() + args[4].max()).item()
     topr = topr_variants(args, kw, "int8", card, cscale,
                          "config D partition 0, routed bids")
-    X.LAUNCHES = X.TOPR_LAUNCHES = 0  # the comparisons are not the path's
+    reset_expand_counts()  # the comparisons are not the path's
 
     chosen, curve = None, []
     for p in PROBE_GRID:
@@ -2247,7 +2300,7 @@ def config_d_stacked(pidx, queries: np.ndarray, qdev, gt, host: dict,
     torch.cuda.synchronize()
     out["assemble_s"] = time.perf_counter() - t0
     out["state_GB"] = sh.stats()["memory_total_bytes"] / 1e9
-    X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    reset_expand_counts()
     d, ids = sh.search(qchunk, k=10, probes=probes)
     out["host_loop_tie_rows"] = same_up_to_ties(
         hd.cpu().numpy(), hi.cpu().numpy(), d, ids, rtol=STACKED_RTOL)
@@ -2313,7 +2366,7 @@ def config_d_stacked(pidx, queries: np.ndarray, qdev, gt, host: dict,
     out["topr"] = topr_variants(args, kw, "int8", card, cscale, what,
                                 nqs=(args[5].shape[0], RAGGED_Q))
     out["timing"] = stage1_timing(args, kw, 40, card, what)
-    X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    reset_expand_counts()
     return out
 
 
@@ -2557,7 +2610,7 @@ def sparse_phase(card: str, dev: torch.device, data) -> dict:
                    B=inner.n_blocks, of="sparse 1M x 256, routed bids")))
     del args, kw, qproj
 
-    X.LAUNCHES = X.TOPR_LAUNCHES = 0
+    reset_expand_counts()
     curve = []
     for rk in SP_RERANK:
         before = expand_launches()
@@ -2943,7 +2996,8 @@ def run(host: HostData) -> None:
 
     with phase("block path"):
         # count only the block path's launches
-        X.LAUNCHES = X.TOPR_LAUNCHES = H.LAUNCHES = 0
+        H.LAUNCHES = 0
+        reset_expand_counts()
         numbers, idx, gt = main_path(base, queries, card, dev)
         launches = expand_launches()
         assert launches["expand_topr"] > 0, \
@@ -2958,7 +3012,7 @@ def run(host: HostData) -> None:
             card, f"block path, one {CHUNK}-query search_device chunk")]
         ranges = profile_phase(idx, qchunk, numbers["probes"], card)
     with phase("block lifecycle"):
-        X.LAUNCHES = X.TOPR_LAUNCHES = 0
+        reset_expand_counts()
         life = lifecycle_phase(idx, base, queries, numbers["probes"], card,
                                dev)
         life_launches = expand_launches()
@@ -2992,7 +3046,7 @@ def run(host: HostData) -> None:
         graph, gidx, gkw, gbreak = graph_phase(base, queries, gt, card, dev)
         breakdowns.append(gbreak)
     with phase("graph-routed block"):
-        X.LAUNCHES = X.TOPR_LAUNCHES = 0
+        reset_expand_counts()
         routed = block_graph_routed(base, queries, gt, card, dev)
         routed_launches = expand_launches()
         assert routed_launches["expand_topr"] > 0, \
@@ -3009,14 +3063,14 @@ def run(host: HostData) -> None:
         ivf = ivf_phase(base, queries, gt, card, dev)
         torch.cuda.empty_cache()
     with phase("partition modes"):
-        X.LAUNCHES = X.TOPR_LAUNCHES = 0
+        reset_expand_counts()
         modes = partition_modes(base, queries, gt, card, dev)
         modes_launches = expand_launches()
         assert modes_launches["expand_topr"] > 0, \
             "the centroid-partitioned block path never launched expand_topr"
         torch.cuda.empty_cache()
     with phase("mesh build"):
-        X.LAUNCHES = X.TOPR_LAUNCHES = 0
+        reset_expand_counts()
         mesh = mesh_build_phase(base, queries, gt, card, dev)
         mesh_launches = expand_launches()  # the graph engine has no kernel
         del base, queries
@@ -3036,7 +3090,8 @@ def run(host: HostData) -> None:
         assert d_stacked_launches["expand_topr"] > 0, \
             "stacked config D never launched expand_topr"
         topr.extend(stacked.pop("topr"))
-        timings.append(stacked.pop("timing"))
+        stacked_timing = stacked.pop("timing")
+        timings.append(stacked_timing)
         breakdowns.append(stacked.pop("breakdown"))
         torch.cuda.empty_cache()
 
@@ -3093,7 +3148,11 @@ def run(host: HostData) -> None:
                       "mesh_build_8x25k_and_1M": mesh_launches[name],
                       "sparse_1Mx30522": sp_launches[name],
                       "binary_1Mx1536": launches_bin[name]}
-               for name in ("expand_score", "expand_topr")}
+               for name in ("expand_score", "expand_topr",
+                            "expand_topr_grouped", "expand_topr_ring")}
+    # each route of the fused entry served some path in the counted runs
+    for name in ("expand_topr_grouped", "expand_topr_ring"):
+        assert sum(by_path[name].values()) > 0, f"no path launched {name}"
     print(json.dumps({"stage1_timings": timings,
                       "device_breakdowns": breakdowns}), flush=True)
     print(json.dumps({"kernels": [{
@@ -3113,32 +3172,40 @@ def run(host: HostData) -> None:
                     "span of one call behind a spin kernel",
         "variants": variants,
         "at_sparse_shape": sparse["variants"],
-    }, {
-        "name": "expand_topr", "route": "cuda",
-        "source": "tpu_hnsw_torch/csrc/expand_score.cu "
-                  "(expand_topr_launch)",
+    }, *[{
+        "name": f"expand_topr_{route}", "route": "cuda",
+        "source": "tpu_hnsw_torch/csrc/expand_score.cu " + entry,
         "replaces": "tpu_hnsw/ops/pallas_expand.py:141 with the "
                     "approx_min_k of tpu_hnsw/index/block.py:212",
-        "launches": sum(by_path["expand_topr"].values()),
-        "launches_by_path": by_path["expand_topr"],
+        "launches": sum(by_path[f"expand_topr_{route}"].values()),
+        "launches_by_path": by_path[f"expand_topr_{route}"],
         "max_abs_err": max(v["max_abs_err"] for v in topr),
-        "ms": random_timing["fused_ms"],
-        "device_ms": random_timing["fused_device_ms"],
-        "plain_ms": random_timing["plain_fused_ms"],
-        "bound_ms": random_timing["fused_bound_ms"],
-        "bound_by": random_timing["fused_bound_by"],
+        "ms": at[f"{route}_ms"], "device_ms": at["fused_device_ms"],
+        "plain_ms": at["plain_fused_ms"],
+        "bound_ms": at["fused_bound_ms"], "bound_by": at["fused_bound_by"],
         "library_ms": None,
-        "composite_ms": random_timing["composite_ms"],
-        "composite_device_ms": random_timing["composite_device_ms"],
+        "composite_ms": at["composite_ms"],
+        "composite_device_ms": at["composite_device_ms"],
         "composite_of": "expand_score_launch, then torch.topk over "
                         "[Q, p*S] (the earlier design's stage 1)",
-        "timed_at": "int8 l2 Q=1024 p=8 S=256 d=128 r=40, random bids; "
-                    "ms and composite_ms: CUDA events over back-to-back "
-                    "calls, *device_ms: the span of one call behind a spin "
-                    "kernel",
-        "variants": topr,
-        "at_sparse_shape": sparse["timings"],
-    }, {
+        "other_route_ms": at["ring_ms" if route == "grouped"
+                             else "grouped_ms"],
+        "timed_at": f"{at['of']}: int8 Q={at['Q']} p={at['p']} "
+                    f"S={at['S']} d={at['d']} r={at['r']}, where "
+                    "topr_route picks this route; ms: CUDA events over "
+                    "back-to-back calls, routes in turns; device_ms: the "
+                    "span of one call behind a spin kernel",
+        "variants": [v for v in topr if route in v["routes"]],
+        "at_every_stage1_shape": [
+            {k: t[k] for k in ("of", "Q", "p", "d", "r", "route",
+                               "grouped_ms", "ring_ms", "fused_bound_ms",
+                               "composite_ms", "chosen_is_faster")}
+            for t in timings],
+    } for route, entry, at in (
+        ("grouped", "(expand_topr_grouped_launch: grouped_kernel<TOPR>, "
+                    "merge_kernel)", random_timing),
+        ("ring", "(expand_topr_launch: stage_kernel, select_kernel)",
+         stacked_timing))], {
         "name": "hamming_scan", "route": "cuda",
         "source": "tpu_hnsw_torch/csrc/hamming_scan.cu",
         "replaces": "tpu_hnsw/ops/pallas_hamming.py:52",

@@ -399,27 +399,91 @@ def test_row_info_alignment_matches_the_copy_width(S, misfits):
 @pytest.mark.parametrize("P,Q,C", [(1, 1, 1), (8192, 1024, 320),
                                    (12345, 150, 1200)])
 def test_scratch_offsets_are_aligned_and_disjoint(P, Q, C):
-    """The launch scratch of either entry: the work items 16-byte aligned,
-    the per-query keys 8-byte aligned, every region inside the buffer and
-    none overlapping; the grouping regions sit at the same offsets."""
+    """The launch scratch of each entry and route: the work items 16-byte
+    aligned, the per-query keys 8-byte aligned, every region inside the
+    buffer and none overlapping; the grouping regions sit at the same
+    offsets, and each route's pointers are its regions."""
     sizes = {"gpair": 4 * P, "items": 16 * P, "gtab": 4 * X._GTAB_INTS,
              "gbid": 4 * P, "thresh": 8 * Q, "count": 4 * P,
-             "cand": 8 * Q * C}
-    fused, _ = X._scratch_offsets(P, Q, C)
+             "cand": 8 * Q * C, "keys": 8 * Q * C}
     every, _ = X._scratch_offsets(P)
-    assert set(fused) == set(sizes) - {"gbid"}
     assert set(every) == {"gpair", "items", "gtab", "gbid"}
-    for off, total in (X._scratch_offsets(P, Q, C), X._scratch_offsets(P)):
+    for route in (None, "grouped", "ring"):
+        off, total = X._scratch_offsets(P, Q, C, route)
+        assert set(off) == {"gpair", "items", "gtab",
+                            *X._SCRATCH_ARGS[route]}
         assert off["items"] % 16 == 0
-        assert all(off[k] % 8 == 0 for k in ("thresh", "cand") if k in off)
+        assert all(off[k] % 8 == 0 for k in ("thresh", "cand", "keys")
+                   if k in off)
         spans = sorted((off[k], off[k] + sizes[k]) for k in off)
         assert spans[0][0] == 0 and spans[-1][1] == total
         assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
-    assert all(fused[k] == every[k] for k in ("gpair", "items", "gtab"))
+        assert all(off[k] == every[k] for k in ("gpair", "items", "gtab"))
     # a pair keeps at most min(2R, S) keys
     assert [X._pair_slots(R, 256) for R in (1, 40, 100, 128)] == [
         2, 80, 200, 256]
     assert X._pair_slots(30, 30) == 30
+
+
+# (Q, p, r, B, S, row bytes) of the kernel table's stage-1 shapes, and the
+# route each takes: the 1M x 128 main path (random bids; the bench's 4,096
+# queries), config D's partition and stacked shapes (d 96, 1.25M and 10M
+# rows), the sparse path at rerank_k 50 and 100 (d 256), the CLI eval's
+# 512-query chunks at 5, 21 and 105 probes, the binary copy (d 1536)
+ROUTE_SHAPES = [
+    ((1024, 8, 40, 4102, 256, 128), "grouped"),
+    ((4096, 8, 40, 4102, 256, 128), "grouped"),
+    ((1024, 4, 40, 4883, 256, 96), "ring"),
+    ((8192, 4, 40, 39063, 256, 96), "ring"),
+    ((1024, 14, 50, 4102, 256, 256), "grouped"),
+    ((1024, 27, 100, 4102, 256, 256), "ring"),
+    ((512, 5, 40, 4102, 256, 128), "ring"),
+    ((512, 21, 40, 4102, 256, 128), "grouped"),
+    ((512, 105, 40, 4102, 256, 128), "ring"),
+    ((1024, 8, 40, 4102, 256, 1536), "ring"),
+]
+
+
+@pytest.mark.parametrize("shape,route", ROUTE_SHAPES)
+def test_topr_route_by_keys_and_probes_a_block(shape, route):
+    """The grouped route where a query's keys fit its merge and blocks are
+    probed more than once a 128-byte row slice on average; the ring
+    otherwise. The grouped route is offered exactly up to 1,024 keys."""
+    assert X.topr_route(*shape) == route
+    Q, p, r, B, S, _ = shape
+    assert ("grouped" in X.topr_routes(p, r, S)) == (
+        p * min(r, S) <= X.GROUPED_MAX_KEYS)
+    assert X.topr_routes(p, r, S)[-1] == "ring"
+
+
+def test_topr_route_argument_is_checked():
+    """An unknown route, or the grouped route over more keys a query than
+    its merge holds, raises before any launch (the CPU path too)."""
+    blocks8, scale, block_ids, _, qp, bids, blocks_sq = _tie_case()
+    q8, q_scl = _quantize_rows(_t(qp))
+    args = (_t(blocks8), _t(blocks_sq), _t(block_ids), _t(qp),
+            _t((qp * qp).sum(1)), _t(bids), Metric.L2)
+    kw = dict(q8=q8, q_scale=q_scl, score_scale=_t(scale))
+    with pytest.raises(ValueError, match="route"):
+        X.expand_topr(*args, 10, route="sorted", **kw)
+    S, p = blocks8.shape[1], bids.shape[1]
+    r = min(X.TOPR_MAX_R, S)
+    if p * r <= X.GROUPED_MAX_KEYS:
+        wide = np.tile(bids, (1, X.GROUPED_MAX_KEYS // (p * r) + 1))
+        args = args[:5] + (_t(wide), Metric.L2)
+    with pytest.raises(ValueError, match="grouped"):
+        X.expand_topr(*args, r, route="grouped", **kw)
+    # both routes take the plain version on the CPU
+    got = X.expand_topr(*args[:5], _t(bids), Metric.L2, 10, route="ring",
+                        **kw)
+    want = X.expand_topr_reference(*args[:5], _t(bids), Metric.L2, 10, **kw)
+    assert torch.equal(got[1], want[1])
+
+
+def _routes(p, r, S):
+    """None (the route topr_route picks), then every route expand_topr can
+    take at p probes and width r."""
+    return (None, *X.topr_routes(p, r, S))
 
 
 def _card():
@@ -449,20 +513,28 @@ def _int8_args(dev, seed, B, S, dp, Q, p, bids=None):
 
 def _assert_int8_exact(args, kw, rs=(1, 40)):
     """Both entries against their plain versions on the card: all scores
-    bit-equal, top-r keys equal for each r (the fused entry counts one
-    launch of each counter)."""
+    bit-equal, top-r keys equal for each r on each route the shape allows
+    (the fused entry counts one launch of each counter and of its
+    route's)."""
     plain = X.expand_score_reference(*args, **kw)
     got = X.expand_score(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, plain)
+    Q, p = args[5].shape
+    B, S = args[0].shape[:2]
     for r in rs:
-        before = (X.LAUNCHES, X.TOPR_LAUNCHES)
-        d, pos = X.expand_topr(*args, r, **kw)
-        torch.cuda.synchronize()
-        assert (X.LAUNCHES, X.TOPR_LAUNCHES) == (before[0] + 1,
-                                                  before[1] + 1)
         wd, wpos = X.topr_of_scores(plain, r)
-        assert torch.equal(T.score_keys(d, pos), T.score_keys(wd, wpos)), r
+        for route in _routes(p, r, S):
+            took = route or X.topr_route(Q, p, r, B, S, args[0].shape[2])
+            before = (X.LAUNCHES, X.TOPR_LAUNCHES,
+                      X.TOPR_ROUTE_LAUNCHES[took])
+            d, pos = X.expand_topr(*args, r, route=route, **kw)
+            torch.cuda.synchronize()
+            assert (X.LAUNCHES, X.TOPR_LAUNCHES,
+                    X.TOPR_ROUTE_LAUNCHES[took]) == tuple(
+                        n + 1 for n in before)
+            assert torch.equal(T.score_keys(d, pos),
+                               T.score_keys(wd, wpos)), (r, took)
 
 
 @pytest.mark.cuda
@@ -528,10 +600,11 @@ def test_expand_one_hot_fragments_on_card():
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want)
     for r in (1, 5, 48, 100):
-        d, pos = X.expand_topr(*args, r, **kw)
         wd, wpos = X.topr_of_scores(_t(want), r)
-        assert torch.equal(T.score_keys(d.cpu(), pos.cpu()),
-                           T.score_keys(wd, wpos))
+        for route in _routes(p, r, S):
+            d, pos = X.expand_topr(*args, r, route=route, **kw)
+            assert torch.equal(T.score_keys(d.cpu(), pos.cpu()),
+                               T.score_keys(wd, wpos)), route
 
 
 @pytest.mark.cuda
@@ -549,7 +622,8 @@ def test_expand_one_block_probed_by_every_query_on_card(Q, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [8, 12])  # 12 x 100 keys: over 1,024 a query
+# 12 x 100 keys: over 1,024 a query, the ring route alone
+@pytest.mark.parametrize("p", [8, 12])
 def test_expand_routed_bids_with_invalid_on_card(p):
     """Duplicate-free per-query bids (as routing gives) with -1 and B
     entries: out-of-range pairs score +inf on every row, the rest exact."""
@@ -642,18 +716,19 @@ def test_expand_topr_float_on_card(dtype, dp, rtol, metric):
             (q * q).sum(1), _t(rng.integers(0, B, size=(Q, p))).to(dev),
             Metric(metric))
     plain = X.expand_score_reference(*args).reshape(Q, -1)
-    d, pos = X.expand_topr(*args, r)
     cscale = (args[1].max() + args[4].max()).item()
-    at = plain.gather(1, pos)
-    fin = torch.isfinite(at)
-    assert torch.equal(fin, torch.isfinite(d))
-    assert ((d - at).abs()[fin] <= rtol * (cscale + at.abs()[fin])).all()
     wd, _ = X.topr_of_scores(plain, r)
     tol = rtol * (cscale + wd[:, -1].abs())
-    assert ((d[:, -1] - wd[:, -1]).abs() <= tol).all()
     must = plain < (wd[:, -1] - tol)[:, None]
-    got = torch.zeros_like(must).scatter_(1, pos, True)
-    assert (got | ~must).all()
+    for route in _routes(p, r, S):
+        d, pos = X.expand_topr(*args, r, route=route)
+        at = plain.gather(1, pos)
+        fin = torch.isfinite(at)
+        assert torch.equal(fin, torch.isfinite(d))
+        assert ((d - at).abs()[fin] <= rtol * (cscale + at.abs()[fin])).all()
+        assert ((d[:, -1] - wd[:, -1]).abs() <= tol).all()
+        got = torch.zeros_like(must).scatter_(1, pos, True)
+        assert (got | ~must).all()
 
 
 @pytest.mark.cuda
@@ -734,3 +809,49 @@ def test_expand_topr_three_patterns_many_probes_on_card(seed):
             Metric.L2]
     _assert_int8_exact(args, dict(q8=q8, q_scale=q_scl, score_scale=scale),
                        rs=(1, 40, 128))
+
+
+@pytest.mark.cuda
+def test_expand_topr_random_shapes_on_card():
+    """600 seeded random shapes on every route each allows: B 1-400 blocks
+    of S 1-256 rows (S % 16 and S % 4 nonzero among them), d 4-320 int8
+    (4-byte and 16-byte copies, one to three 128-byte slices), Q 1-300,
+    p 1-40 with repeats, -1 and out-of-range bids, r 1-128, L2 and IP, a
+    filter mask on a third, and on a quarter rows drawn from 3 patterns, so
+    ties decide the answer. Keys exactly equal to the plain version's."""
+    dev = _card()
+    rng = np.random.default_rng(2024)
+    for case in range(600):
+        B = int(rng.integers(1, 401))
+        S = int(rng.choice([1, 7, 16, 30, 44, 64, 100, 128, 200, 256]))
+        dp = int(rng.choice([4, 36, 64, 96, 128, 200, 256, 320]))
+        Q = int(rng.integers(1, 301))
+        p = int(rng.integers(1, 41))
+        r = int(rng.integers(1, X.TOPR_MAX_R + 1))
+        if rng.random() < 0.25:
+            pats = rng.integers(-20, 21, size=(3, dp)).astype(np.int8)
+            rows = pats[rng.integers(0, 3, size=(B, S))]
+        else:
+            rows = rng.integers(-127, 128, size=(B, S, dp)).astype(np.int8)
+        blocks = _t(rows).to(dev)
+        scale = _t(rng.uniform(0.001, 0.02, size=B).astype(np.float32)).to(
+            dev)
+        xf = blocks.float() * scale[:, None, None]
+        ids = np.arange(B * S).reshape(B, S)
+        block_ids = _t(np.where(rng.random((B, S)) < 0.1, -1, ids).astype(
+            np.int32)).to(dev)
+        q = _t(rng.normal(size=(Q, dp)).astype(np.float32)).to(dev)
+        q8, q_scl = _quantize_rows(q)
+        bids = rng.integers(-1, B + 1, size=(Q, p)).astype(np.int64)
+        args = [blocks, (xf * xf).sum(-1), block_ids, q, (q * q).sum(1),
+                _t(bids).to(dev), Metric.L2 if case % 2 else Metric.IP]
+        kw = dict(q8=q8, q_scale=q_scl, score_scale=scale)
+        if rng.random() < 1 / 3:
+            kw["allowed"] = _t(rng.random((B, S)) < 0.5).to(dev)
+        plain = X.expand_score_reference(*args, **kw)
+        wd, wpos = X.topr_of_scores(plain, r)
+        want = T.score_keys(wd, wpos)
+        for route in _routes(p, r, S):
+            d, pos = X.expand_topr(*args, r, route=route, **kw)
+            assert torch.equal(T.score_keys(d, pos), want), (
+                case, route, dict(B=B, S=S, dp=dp, Q=Q, p=p, r=r))

@@ -19,32 +19,42 @@
 //   int8 rows: int32 dot on mma.m16n8k32 s8, dequantised as
 //              dot * (q_scale[q] * score_scale[b]), rounded op by op like
 //              the plain version, so int8 scores are bit-equal to it.
-// Two entries:
+// Three entries:
 //   expand_score_launch: out[q, j, s] f32, the Pallas function's contract;
-//   expand_topr_launch:  each query's rq = min(r, p * S) smallest keys
-//     (ordered score bits << 32 | j * S + s), ascending, as scores and
-//     positions, where the ordered bits are the f32 score's bits with the
-//     magnitude flipped when negative (-0 taken as +0), so key order is
-//     (score, position). r <= 128, S <= 256.
+//   expand_topr_launch and expand_topr_grouped_launch: each query's rq =
+//     min(r, p * S) smallest keys (ordered score bits << 32 | j * S + s),
+//     ascending, as scores and positions, where the ordered bits are the
+//     f32 score's bits with the magnitude flipped when negative (-0 taken
+//     as +0), so key order is (score, position). r <= 128, S <= 256. The
+//     two are routes of one function (ops/expand.py::topr_route picks).
 //
 // What bounds it: bytes. Each probed block's rows are read for S outputs a
 // query with one multiply-add per byte, far below the card's
 // compute-per-byte line; the least time is the distinct probed blocks'
-// bytes over the memory rate. What kept the earlier grouped design at
-// 20-46% of that: one CTA per 32 grouped pairs, so 128-256 CTAs, each a
-// chain of dependent two-stage cp.async steps with two CTA barriers a step
-// and its top-r select at the end, when nothing was loading; every pair's
-// r keys written to device memory as int64 and merged by a second kernel
-// that held at most 1,024 keys a query (torch.topk above). In the fused
-// entry the select is the rest of the cost: a pair's r-th key takes a
-// chain of warp reductions, each tens of cycles, that no load hides.
+// bytes over the memory rate. In the fused entry the select is the rest
+// of the cost: a pair's r-th key takes a chain of warp reductions, each
+// tens of cycles, that no load hides unless another CTA is loading.
 //
-// The design of the fused entry (the all-scores entry keeps the earlier
-// mainloop, namespace all_scores below: on this one it was slower at the
-// stacked config D shape and at 53 sparse probes):
-// - A grouping kernel counting-sorts the Q * p (query, probe) pairs by
-//   block id on the device (no host synchronisation) and cuts each block's
-//   run of pairs into work items of one block and up to 32 of its pairs.
+// Both routes and the all-scores entry share a grouping kernel, which
+// counting-sorts the Q * p (query, probe) pairs by block id on the device
+// (no host synchronisation) and cuts each block's run of pairs into work
+// items of one block and up to 32 of its pairs.
+//
+// The grouped design (namespace grouped; the all-scores entry and the
+// grouped route): CTAs of 32 consecutive grouped pairs, two an SM, each a
+// chain of two-stage cp.async steps; the top-r form keeps its pairs'
+// scores in a shared tile, writes each pair's R = min(r, S) smallest keys
+// as int64 and merge_kernel takes each query's rq smallest of its p * R
+// (at most 1,024). While one CTA of an SM selects, the other loads. It
+// wins where blocks are probed by several queries each (the main path's
+// 1,024 and 4,096-query chunks, sparse rerank_k 50): there the selects
+// are much of the work. It holds the SMs poorly when pairs are few (Q * p
+// / 32 CTAs) and leaves each CTA's loads serial.
+//
+// The ring (expand_topr_launch), for blocks mostly probed once (config D's
+// partition and stacked shapes), rows of many 128-byte slices (d = 1536)
+// and any number of keys a query (the sparse path's 27 probes of r = 100,
+// the CLI eval's 105 probes of r = 40):
 // - One persistent CTA per SM walks the work items round-robin, with one
 //   producer warp and two consumer groups of 4 warps that take alternate
 //   items. The producer keeps each group's 2 ring slots full (a group busy
@@ -57,23 +67,26 @@
 //   accumulators (f32 rows: FMAs, two rows a lane), stores them raw into
 //   its group's tile and scores them a lane a (pair, row), so an item of
 //   one or two pairs keeps every lane busy.
-// - The fused select keeps no [Q, p, S] scores and no fixed r keys a pair
-//   in device memory. Each query has a running threshold key, an upper
-//   bound on its r-th key. A group gathers its pairs' ordered scores in
-//   its tile and selects them in batches: a pair keeps only its keys at or
-//   below the threshold; when more than r lie there it bounds them by a
-//   key below which it holds r to 2r keys (found by a bitwise search that
-//   stops at the first bit where the count lands there, or its exact r-th
-//   key when ties prevent that), which bounds the query's r-th key too, and
-//   lowers the threshold to it (atomicMin). So every key of the answer
-//   survives and a pair keeps at most min(2r, S) keys. A select kernel
-//   then gathers each query's survivors up to its final threshold into
-//   shared memory (a warp a query when it has at most 512 slots, else 256
-//   threads and up to 4,096 keys; any count is taken, from the pairs'
-//   lists, when they do not fit), finds the rq-th smallest by 8-bit radix
-//   digits and writes the rq keys in order. Keys are unique, so the result
-//   is exact and deterministic; only the set of survivors varies from run
-//   to run.
+// - The select keeps no [Q, p, S] scores and no merge cap. Each query has a
+//   running threshold key, an upper bound on its r-th key. A group gathers
+//   its pairs' ordered scores in its tile and selects them in batches: a
+//   pair keeps only its keys at or below the threshold; when more than r
+//   lie there it bounds them by a key below which it holds r to 2r keys
+//   (found by a bitwise search that stops at the first bit where the count
+//   lands there, or its exact r-th key when ties prevent that), which
+//   bounds the query's r-th key too, and lowers the threshold to it
+//   (atomicMin). So every key of the answer survives, and a pair writes
+//   at most min(2r, S) keys, as uint64, into its own slots in device
+//   memory. A select kernel then gathers each query's survivors up to its
+//   final threshold into shared memory (a warp a query when it has at most
+//   512 slots, else 256 threads and up to 4,096 keys; any count is taken,
+//   from the pairs' lists, when they do not fit), finds the rq-th smallest
+//   by 8-bit radix digits and writes the rq keys in order. Keys are
+//   unique, so the result is exact and deterministic; only the set of
+//   survivors varies from run to run.
+// - What still holds it back where the grouped route wins: a group's batch
+//   select runs between its items, on its critical path, with 8 consumer
+//   warps an SM against the grouped design's 16.
 // - Block offsets are 64-bit: the tensor map's block coordinate is the
 //   block id and every other offset is computed in 64 bits.
 
@@ -426,17 +439,19 @@ __device__ __forceinline__ uint32_t ordered(float sc) {
   return static_cast<uint32_t>(b) ^ 0x80000000u;
 }
 
-// The all-scores entry keeps the earlier grouped design: its mainloop on
-// the persistent TMA ring (below) was slower at the stacked config D shape
-// and at the sparse shape of 53 probes, where items hold many pairs or
-// rows take several 128-byte slices. A CTA takes 32 consecutive grouped
-// pairs; each run of equal block ids in its range streams that block once,
-// in cp.async stages of 256 rows x 128 bytes (two in flight), with the
-// same bytes of each query of the run and, on a run's last stage, the
-// rows' ids, norms and filter bytes; 8 warps each hold 32 rows x up to 32
-// queries of accumulators. A run that crosses a CTA boundary is read by
-// both CTAs.
-namespace all_scores {
+// The grouped design, which serves the all-scores entry and the fused
+// entry's grouped route. A CTA takes 32 consecutive grouped pairs; each
+// run of equal block ids in its range streams that block once, in cp.async
+// stages of 256 rows x 128 bytes (two in flight), with the same bytes of
+// each query of the run and, on a run's last stage, the rows' ids, norms
+// and filter bytes; 8 warps each hold 32 rows x up to 32 queries of
+// accumulators. A run that crosses a CTA boundary is read by both CTAs.
+// The top-r form keeps its 32 pairs' ordered scores in a [32][S] tile and,
+// at the CTA's end, writes each pair's R smallest keys (a warp a pair, a
+// bitwise search for the R-th); merge_kernel then takes each query's rq
+// smallest of its p * R <= 1,024 keys. The all-scores mainloop on the ring
+// below was slower at the stacked config D shape and at 53 sparse probes.
+namespace grouped {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -456,9 +471,10 @@ struct Args {
   const float* score_scale;  // [B] (int8)
   const int* gbid;           // [P] block ids grouped (-1: outside [0, B))
   const int* gpair;          // [P] pair (q * p + j) of each grouped entry
-  float* out;                // [P, S]
+  float* out;                // [P, S] (all scores)
+  i64* keys;                 // [P, R] (top-r)
   i64 pairs;
-  int p, S, row_bytes, l2;
+  int p, S, row_bytes, l2, R;
 };
 
 // A stage: kGroupRows block rows and kT query rows of kKC bytes (swizzled,
@@ -466,19 +482,21 @@ struct Args {
 // scale (filled on a run's last stage, which the epilogue reads).
 constexpr int kInfo = kGroupRows * (4 + 4 + 1) + 16;
 
-// Shared memory: kStages stages, then the per-pair tables.
+// Shared memory: kStages stages, the per-pair tables, then the score tile
+// (top-r).
 struct Layout {
-  int rows, stage, pair_tab, total;
+  int rows, stage, pair_tab, tile, total;
 };
 
-__host__ __device__ inline Layout layout() {
+__host__ __device__ inline Layout layout(int S, bool topr) {
   Layout L;
   L.rows = (kGroupRows + kT) * kKC;
   L.stage = L.rows + kInfo;
   L.pair_tab = kStages * L.stage;
   // grouped bid, pair, q row, position base, run lo, run hi (int);
   // q_sq, q_scale (f32); the run count and the invalid pairs' mask
-  L.total = L.pair_tab + kT * 8 * 4 + 16;
+  L.tile = (L.pair_tab + kT * 8 * 4 + 16 + 15) / 16 * 16;
+  L.total = L.tile + (topr ? kT * S * 4 : 0);
   return L;
 }
 
@@ -502,6 +520,76 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The key of an ordered score at a position: (signed ordered bits << 32) |
+// pos, so signed int64 order is (score, position).
+__device__ __forceinline__ i64 key_of(uint32_t u, int pos) {
+  return static_cast<i64>(
+      (static_cast<unsigned long long>(u ^ 0x80000000u) << 32) |
+      static_cast<uint32_t>(pos));
+}
+
+// Each query's r smallest of its C = p * R candidate keys (C <= kMergeC,
+// r <= kMaxR), ascending, decoded to (score, position): a warp a query
+// finds the r-th smallest key by a bitwise search, gathers the keys up to
+// it and places each by its rank.
+constexpr int kMergeC = 1024;
+
+template <int kPer>  // candidates a lane: C <= 32 * kPer
+__global__ void __launch_bounds__(kThreads)
+merge_kernel(const i64* __restrict__ cand, int Q, int C, int r,
+             float* __restrict__ out_score, i64* __restrict__ out_pos) {
+  __shared__ i64 sel[kWarps][kMaxR];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kWarps + warp;
+  if (q >= Q) return;  // warp-uniform; no CTA barrier below
+  constexpr unsigned long long kSign = 1ull << 63;
+  unsigned long long v[kPer];  // unsigned order: sign bit flipped
+  unsigned long long mn = ~0ull, mx = 0;
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) {
+    const int j = lane + 32 * c;
+    v[c] = j < C ? static_cast<unsigned long long>(
+                       cand[static_cast<i64>(q) * C + j]) ^ kSign
+                 : ~0ull;
+    mn = min(mn, v[c]);
+    if (j < C) mx = max(mx, v[c]);
+  }
+  // the answer lies in [min, max]: search below their common prefix
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  const unsigned long long diff = mn ^ mx;
+  const int top = diff ? 63 - __clzll(static_cast<long long>(diff)) : 0;
+  unsigned long long th = mn & ~((2ull << top) - 1);  // 2 << 63 wraps to 0
+  for (int bit = top; bit >= 0; --bit) {
+    const unsigned long long c2 = th | (1ull << bit);
+    int cnt = 0;
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) cnt += v[c] < c2;
+    if (__reduce_add_sync(0xffffffffu, cnt) < r) th = c2;
+  }
+  const unsigned lt_mask = (1u << lane) - 1;
+  int put = 0;
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) {
+    const bool take = v[c] <= th;
+    const unsigned mt = __ballot_sync(0xffffffffu, take);
+    if (take) sel[warp][put + __popc(mt & lt_mask)] = v[c] ^ kSign;
+    put += __popc(mt);
+  }
+  __syncwarp();
+  for (int j = lane; j < r; j += 32) {
+    const i64 k = sel[warp][j];
+    int rank = 0;
+    for (int t = 0; t < r; ++t) rank += sel[warp][t] < k;
+    const int hi = static_cast<int>(k >> 32);
+    const i64 o = static_cast<i64>(q) * r + rank;
+    out_score[o] = __int_as_float(hi ^ ((hi >> 31) & 0x7fffffff));
+    out_pos[o] = k & 0xffffffffLL;
+  }
+}
 
 // Copies nbytes from src to dst (both aligned to the copy width) with the
 // CTA's threads, VEC bytes a copy.
@@ -565,13 +653,13 @@ __device__ __forceinline__ void load_stage(const Args& a, char* buf, int b,
     cp_async<4>(inf + kGroupRows * 9,
                 reinterpret_cast<const uint8_t*>(a.score_scale + b), 4);
 }
-template <int MODE, int VEC>
+template <int MODE, int VEC, bool TOPR>
 __global__ void __launch_bounds__(kThreads, 2)
 grouped_kernel(const Args a) {
   extern __shared__ __align__(16) char smem[];
   constexpr int T = kT;
   const int S = a.S;
-  const Layout L = layout();
+  const Layout L = layout(S, TOPR);
   int* s_bid = reinterpret_cast<int*>(smem + L.pair_tab);
   int* s_pair = s_bid + T;
   int* s_qrow = s_pair + T;
@@ -581,6 +669,7 @@ grouped_kernel(const Args a) {
   float* s_qsq = reinterpret_cast<float*>(s_hi + T);
   float* s_qscl = s_qsq + T;
   int* s_nrun = reinterpret_cast<int*>(s_qscl + T);  // runs, bad pairs
+  uint32_t* s_u = reinterpret_cast<uint32_t*>(smem + L.tile);  // [T][S]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const i64 base = static_cast<i64>(blockIdx.x) * T;
@@ -621,8 +710,12 @@ grouped_kernel(const Args a) {
   // pairs of invalid blocks (rare) score +inf on every row
   for (unsigned bad = s_nrun[1]; bad; bad &= bad - 1) {
     const int i = __ffs(bad) - 1;
-    for (int s = tid; s < S; s += kThreads)
-      a.out[static_cast<i64>(s_pair[i]) * S + s] = INFINITY;
+    for (int s = tid; s < S; s += kThreads) {
+      if constexpr (TOPR)
+        s_u[i * S + s] = ordered(INFINITY);
+      else
+        a.out[static_cast<i64>(s_pair[i]) * S + s] = INFINITY;
+    }
   }
   __syncthreads();
 
@@ -760,7 +853,10 @@ grouped_kernel(const Args a) {
         } else {
           sc = -dot;
         }
-        a.out[static_cast<i64>(s_pair[i]) * S + r0 + row] = sc;
+        if constexpr (TOPR)
+          s_u[i * S + r0 + row] = ordered(sc);
+        else
+          a.out[static_cast<i64>(s_pair[i]) * S + r0 + row] = sc;
       };
       auto row_dead = [&](int row) {
         bool dead = r_ids[row] < 0;
@@ -813,13 +909,84 @@ grouped_kernel(const Args a) {
     }
     __syncthreads();  // this stage's buffer is free for step s + kStages
   }
-
+  if constexpr (TOPR) {
+    // each pair's R smallest keys, a warp a pair: the R-th smallest
+    // ordered score by a bitwise search (S <= 256: 8 a lane), then every
+    // row below it and the first rows equal to it (the lowest positions)
+    const int R = a.R;
+    const unsigned lt_mask = (1u << lane) - 1;
+    // two pairs a warp at once, so the two searches' reductions overlap
+    for (int i0 = warp; i0 < n; i0 += 2 * kWarps) {
+      const int np = i0 + kWarps < n ? 2 : 1;
+      uint32_t u[2][8], th[2] = {0u, 0u};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int sr = lane + 32 * c;
+          u[h][c] = h < np && sr < S ? s_u[(i0 + h * kWarps) * S + sr]
+                                     : 0xffffffffu;
+        }
+      // the answer lies in [min, max]: start below their common prefix
+      int top = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t mn = 0xffffffffu, mx = 0u;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          mn = min(mn, u[h][c]);
+          if (lane + 32 * c < S) mx = max(mx, u[h][c]);
+        }
+        mn = __reduce_min_sync(0xffffffffu, mn);
+        mx = __reduce_max_sync(0xffffffffu, mx);
+        const uint32_t diff = mn ^ mx;
+        if (h < np) top = max(top, diff ? 31 - __clz(diff) : 0);
+        th[h] = mn;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) th[h] &= ~((2u << top) - 1u);
+      for (int bit = top; bit >= 0; --bit) {
+        int cnt[2] = {0, 0};
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) cnt[h] += u[h][c] < (th[h] | (1u << bit));
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (__reduce_add_sync(0xffffffffu, cnt[h]) < R) th[h] |= 1u << bit;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h >= np) break;
+        const int i = i0 + h * kWarps;
+        int less = 0;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) less += u[h][c] < th[h];
+        const int need = R - __reduce_add_sync(0xffffffffu, less);
+        i64* o = a.keys + static_cast<i64>(s_pair[i]) * R;
+        int put = 0, eqs = 0;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const bool eq = u[h][c] == th[h];
+          const unsigned meq = __ballot_sync(0xffffffffu, eq);
+          const bool take =
+              u[h][c] < th[h] || (eq && eqs + __popc(meq & lt_mask) < need);
+          const unsigned mt = __ballot_sync(0xffffffffu, take);
+          if (take)
+            o[put + __popc(mt & lt_mask)] =
+                key_of(u[h][c], s_pos0[i] + lane + 32 * c);
+          put += __popc(mt);
+          eqs += __popc(meq);
+        }
+      }
+    }
+  }
 }
 
-template <int MODE, int VEC>
+template <int MODE, int VEC, bool TOPR>
 int launch(const Args& a, cudaStream_t st) {
-  auto kern = grouped_kernel<MODE, VEC>;
-  const int bytes = layout().total;
+  auto kern = grouped_kernel<MODE, VEC, TOPR>;
+  const int bytes = layout(a.S, TOPR).total;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -828,7 +995,7 @@ int launch(const Args& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace all_scores
+}  // namespace grouped
 
 // The ring: stage s's full and empty barriers at full + 8 s and empty +
 // 8 s. Consumer group g owns slots [g * kSlots, (g + 1) * kSlots) and
@@ -1706,12 +1873,37 @@ int launch_mode(int mode, const Args& a, const CUtensorMap& map,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int VEC>
-int launch_all(int mode, const all_scores::Args& a, cudaStream_t st) {
-  if (mode == kF32) return all_scores::launch<kF32, VEC>(a, st);
-  if (mode == kBF16) return all_scores::launch<kBF16, VEC>(a, st);
-  if (mode == kI8) return all_scores::launch<kI8, VEC>(a, st);
+template <int VEC, bool TOPR>
+int launch_grouped(int mode, const grouped::Args& a, cudaStream_t st) {
+  if (mode == kF32) return grouped::launch<kF32, VEC, TOPR>(a, st);
+  if (mode == kBF16) return grouped::launch<kBF16, VEC, TOPR>(a, st);
+  if (mode == kI8) return grouped::launch<kI8, VEC, TOPR>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+grouped::Args grouped_args(const void* blocks, const float* blocks_sq,
+                           const int* block_ids, const bool* allowed,
+                           const void* q, const float* q_sq,
+                           const float* q_scale, const float* score_scale,
+                           const int* gbid, const int* gpair, i64 pairs, int p,
+                           int S, int row_bytes, int l2) {
+  grouped::Args a{};
+  a.blocks = static_cast<const uint8_t*>(blocks);
+  a.blocks_sq = blocks_sq;
+  a.block_ids = block_ids;
+  a.allowed = allowed;
+  a.q = static_cast<const uint8_t*>(q);
+  a.q_sq = q_sq;
+  a.q_scale = q_scale;
+  a.score_scale = score_scale;
+  a.gbid = gbid;
+  a.gpair = gpair;
+  a.pairs = pairs;
+  a.p = p;
+  a.S = S;
+  a.row_bytes = row_bytes;
+  a.l2 = l2;
+  return a;
 }
 
 }  // namespace
@@ -1735,25 +1927,58 @@ extern "C" int expand_score_launch(
   const int g = group(bids, pairs, n_blocks, p, gpair,
                       static_cast<int4*>(items), gtab, gbid, nullptr, st);
   if (g < 0) return -g;
-  all_scores::Args a{static_cast<const uint8_t*>(blocks),
-                     blocks_sq,
-                     block_ids,
-                     allowed,
-                     static_cast<const uint8_t*>(q),
-                     q_sq,
-                     q_scale,
-                     score_scale,
-                     gbid,
-                     gpair,
-                     out,
-                     pairs,
-                     p,
-                     S,
-                     row_bytes,
-                     l2};
-  if (vec == 16) return launch_all<16>(mode, a, st);
-  if (vec == 4) return launch_all<4>(mode, a, st);
+  grouped::Args a = grouped_args(blocks, blocks_sq, block_ids, allowed, q,
+                                 q_sq, q_scale, score_scale, gbid, gpair,
+                                 pairs, p, S, row_bytes, l2);
+  a.out = out;
+  if (vec == 16) return launch_grouped<16, false>(mode, a, st);
+  if (vec == 4) return launch_grouped<4, false>(mode, a, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The fused top-r's grouped route (p * R <= 1,024): each pair's R = min(r,
+// S) smallest keys into keys [Q, p, R] int64, then each query's rq smallest
+// of its p * R, ascending, as [Q, rq] f32 scores and int64 positions (rq <=
+// min(128, p * R); S <= 256). Arguments and scratch as
+// expand_score_launch's, keys in place of out. Returns a cudaError_t.
+extern "C" int expand_topr_grouped_launch(
+    int mode, int vec, const void* blocks, const float* blocks_sq,
+    const int* block_ids, const bool* allowed, const void* q,
+    const float* q_sq, const float* q_scale, const float* score_scale,
+    const long long* bids, int* gpair, void* items, int* gtab, int* gbid,
+    long long* keys, long long n_blocks, long long pairs, int p, int S,
+    int row_bytes, int l2, int R, float* top_score, long long* top_pos,
+    int rq, void* stream) {
+  if (pairs == 0 || S == 0) return static_cast<int>(cudaGetLastError());
+  const int C = p * R;
+  if (bad_shape(vec, row_bytes, n_blocks, pairs) || S > kRows || R < 1 ||
+      R > S || C > grouped::kMergeC || rq < 1 || rq > kMaxR || rq > C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int g = group(bids, pairs, n_blocks, p, gpair,
+                      static_cast<int4*>(items), gtab, gbid, nullptr, st);
+  if (g < 0) return -g;
+  grouped::Args a = grouped_args(blocks, blocks_sq, block_ids, allowed, q,
+                                 q_sq, q_scale, score_scale, gbid, gpair,
+                                 pairs, p, S, row_bytes, l2);
+  a.keys = keys;
+  a.R = R;
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (vec == 16) err = launch_grouped<16, true>(mode, a, st);
+  if (vec == 4) err = launch_grouped<4, true>(mode, a, st);
+  if (err != 0) return err;
+  const i64 Q = pairs / p;
+  const auto grid =
+      static_cast<unsigned int>((Q + grouped::kWarps - 1) / grouped::kWarps);
+  if (C <= grouped::kMergeC / 2)
+    grouped::merge_kernel<grouped::kMergeC / 64>
+        <<<grid, grouped::kThreads, 0, st>>>(
+            keys, static_cast<int>(Q), C, rq, top_score, top_pos);
+  else
+    grouped::merge_kernel<grouped::kMergeC / 32>
+        <<<grid, grouped::kThreads, 0, st>>>(
+            keys, static_cast<int>(Q), C, rq, top_score, top_pos);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The fused top-r: each query's rq smallest keys, ascending, as [Q, rq] f32

@@ -31,6 +31,8 @@ from tpu_hnsw_torch.ops import topk as T
 LAUNCHES = 0
 #: launches of the fused top-r entry alone
 TOPR_LAUNCHES = 0
+#: the fused entry's launches by route (see :func:`topr_route`)
+TOPR_ROUTE_LAUNCHES = {"grouped": 0, "ring": 0}
 
 NAME = "expand_score"
 #: the largest r the fused entry takes; above it callers take the
@@ -38,6 +40,11 @@ NAME = "expand_score"
 TOPR_MAX_R = 128
 #: the largest block size the fused entry takes (one pass of 256 rows)
 TOPR_MAX_S = 256
+#: the most keys a query the grouped route's merge holds (p * min(r, S));
+#: csrc: grouped::kMergeC
+GROUPED_MAX_KEYS = 1024
+#: row bytes a stage of either route holds (csrc: kKC)
+_SLICE_BYTES = 128
 
 _P = ctypes.c_void_p
 _I, _LL = ctypes.c_int, ctypes.c_longlong
@@ -46,6 +53,7 @@ _COMMON = [_I, _I] + [_P] * 12
 _SIZES = [_LL, _LL, _I, _I, _I, _I]  # n_blocks, pairs, p, S, row bytes, l2
 _SCORE_ARGS = _COMMON + [_P] * 2 + _SIZES + [_P]
 _TOPR_ARGS = _COMMON + [_P] * 3 + _SIZES + [_I, _P, _P, _I, _P]
+_GROUPED_ARGS = _COMMON + [_P] * 2 + _SIZES + [_I, _P, _P, _I, _P]
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # int32 entries of the grouping table (csrc: 2 * kGroupCtas)
 _GTAB_INTS = 128
@@ -121,6 +129,34 @@ def fused_topr(r: int, S: int) -> bool:
     return 1 <= r <= TOPR_MAX_R and S <= TOPR_MAX_S
 
 
+def topr_routes(p: int, r: int, S: int) -> tuple[str, ...]:
+    """The routes :func:`expand_topr` can take at ``p`` probes, width ``r``
+    and blocks of ``S`` rows: the ring always, and the grouped route where
+    a query's ``p * min(r, S)`` keys fit its merge."""
+    if p * min(r, S) <= GROUPED_MAX_KEYS:
+        return ("grouped", "ring")
+    return ("ring",)
+
+
+def topr_route(Q: int, p: int, r: int, B: int, S: int,
+               row_bytes: int) -> str:
+    """The kernel route of :func:`expand_topr` for ``Q`` queries of ``p``
+    probes into ``B`` blocks of ``S`` rows of ``row_bytes`` bytes.
+
+    ``"grouped"`` (CTAs of 32 grouped pairs, two an SM, each pair's r keys
+    merged by a second kernel) where a query's ``p * min(r, S)`` keys fit its
+    merge and the table's blocks are probed more than once a 128-byte row
+    slice on average (``Q * p > B * slices``): there a block's load feeds
+    several pairs' selects, which that design overlaps with the other CTA's
+    loads. ``"ring"`` (persistent CTAs on a TMA ring, the threshold select)
+    otherwise: blocks mostly probed once, or wide rows, where bytes set the
+    time, and any number of keys a query."""
+    slices = -(-row_bytes // _SLICE_BYTES)
+    if "grouped" in topr_routes(p, r, S) and Q * p > B * slices:
+        return "grouped"
+    return "ring"
+
+
 def _check(name, t, dtype, shape, device):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -149,33 +185,45 @@ def _check_row_info_aligned(entry, S, blocks_sq, block_ids, allowed):
 
 
 def _library():
-    return _nvcc.load_library(NAME, {"expand_score_launch": _SCORE_ARGS,
-                                     "expand_topr_launch": _TOPR_ARGS})
+    return _nvcc.load_library(NAME, {
+        "expand_score_launch": _SCORE_ARGS,
+        "expand_topr_launch": _TOPR_ARGS,
+        "expand_topr_grouped_launch": _GROUPED_ARGS})
 
 
-def _scratch_offsets(P: int, Q: int = 0, C: int = 0) -> tuple[dict, int]:
+#: the scratch pointers each launch takes after the grouping table
+_SCRATCH_ARGS = {None: ("gbid",), "grouped": ("gbid", "keys"),
+                 "ring": ("thresh", "count", "cand")}
+
+
+def _scratch_offsets(P: int, Q: int = 0, C: int = 0,
+                     route: str | None = None) -> tuple[dict, int]:
     """Byte offsets of a launch's scratch in one buffer: the pairs grouped
     by block (int32 ``[P]``), the work items (int4 ``[P]``, 16-byte
-    aligned) and the grouping table (int32 ``[_GTAB_INTS]``); for the
-    all-scores entry also the grouped pairs' block ids (int32 ``[P]``);
-    with ``C = p * cap`` candidate slots a query (the fused entry) instead
-    each query's threshold key (uint64 ``[Q]``), each pair's candidate
-    count (int32 ``[P]``) and each pair's candidate keys (uint64 ``[P,
-    cap]``, that is ``[Q, C]``). Returns (offsets, total bytes)."""
+    aligned) and the grouping table (int32 ``[_GTAB_INTS]``); then for the
+    all-scores entry (``route`` None) the grouped pairs' block ids (int32
+    ``[P]``); for the fused entry's grouped route also each pair's keys
+    (int64 ``[Q, C]``, ``C = p * min(r, S)``); for its ring route, with ``C
+    = p * cap`` candidate slots a query, each query's threshold key (uint64
+    ``[Q]``), each pair's candidate count (int32 ``[P]``) and each pair's
+    candidate keys (uint64 ``[P, cap]``, that is ``[Q, C]``). Returns
+    (offsets, total bytes)."""
     def up(n, a):
         return (n + a - 1) // a * a
 
     off = {"gpair": 0, "items": up(4 * P, 16)}
     off["gtab"] = off["items"] + 16 * P
     end = off["gtab"] + 4 * _GTAB_INTS
-    if not C:
-        off["gbid"] = end
-        end += 4 * P
-    else:
+    if route == "ring":
         off["thresh"] = up(end, 8)
         off["count"] = off["thresh"] + 8 * Q
         off["cand"] = up(off["count"] + 4 * P, 8)
-        end = off["cand"] + 8 * Q * C
+        return off, off["cand"] + 8 * Q * C
+    off["gbid"] = end
+    end += 4 * P
+    if route == "grouped":
+        off["keys"] = up(end, 8)
+        end = off["keys"] + 8 * Q * C
     return off, end
 
 
@@ -186,11 +234,12 @@ def _pair_slots(R: int, S: int) -> int:
 
 
 def _operands(entry, blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
-              q8, q_scale, score_scale, allowed, C: int = 0):
+              q8, q_scale, score_scale, allowed, C: int = 0,
+              route: str | None = None):
     """Checked launch operands shared by both entries: (mode, copy width,
-    the pointer arguments of either C entry through its scratch (with
-    ``C``, the fused entry's), tensors to keep alive, (B, Q, p, S, row
-    bytes))."""
+    the pointer arguments of a C entry through its scratch (``route`` and
+    ``C`` as :func:`_scratch_offsets`'s), tensors to keep alive, (B, Q, p,
+    S, row bytes))."""
     if blocks.device.type != "cuda":
         raise ValueError(f"{entry}: no kernel for {blocks.device}")
     if blocks.dtype not in _MODES:
@@ -230,7 +279,7 @@ def _operands(entry, blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
     flat = bids.reshape(-1).to(torch.int64).contiguous()
     # the pairs grouped by block and cut into work items in the launch (a
     # counting sort on the device: no host synchronisation)
-    off, nbytes = _scratch_offsets(P, Q, C)
+    off, nbytes = _scratch_offsets(P, Q, C, route)
     work = torch.empty((nbytes + 7) // 8, dtype=torch.int64, device=dev)
     keep = (q_op, flat, work)  # alive until the launch is enqueued
     at = work.data_ptr()
@@ -239,8 +288,7 @@ def _operands(entry, blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
             q_op.data_ptr(), q_sq.data_ptr(), qs_ptr, ss_ptr,
             flat.data_ptr()] + [at + off[k] for k in ("gpair", "items",
                                                        "gtab")]
-    args += [at + off[k] for k in (("thresh", "count", "cand") if C
-                                    else ("gbid",))]
+    args += [at + off[k] for k in _SCRATCH_ARGS[route]]
     return _MODES[blocks.dtype], vec, args, keep, (B, Q, p, S, row_bytes)
 
 
@@ -287,37 +335,53 @@ def expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
 
 def expand_topr(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
                 r: int, *, q8=None, q_scale=None, score_scale=None,
-                allowed=None) -> tuple[torch.Tensor, torch.Tensor]:
+                allowed=None, route: str | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Each query's ``min(r, p * S)`` best rows of its ``p`` blocks: (scores
     ``[Q, r]`` f32 ascending, positions ``[Q, r]`` int64 into the query's
     ``[p * S]`` expansion), ordered by (score, position). Arguments as
-    :func:`expand_score`; ``fused_topr(r, S)`` must hold. On the card each
-    (query, probe) pair keeps only its keys at or below its query's running
-    bound on the r-th key (at most ``_pair_slots(r, S)``), and a select
-    kernel orders each query's ``min(r, p * S)`` smallest, whatever their
-    count."""
+    :func:`expand_score`; ``fused_topr(r, S)`` must hold. On the card the
+    kernel takes ``route`` (``"grouped"`` or ``"ring"``; None: the one
+    :func:`topr_route` picks). The grouped route writes each (query, probe)
+    pair's ``min(r, S)`` keys and merges a query's (at most
+    ``GROUPED_MAX_KEYS``); on the ring each pair keeps only its keys at or
+    below its query's running bound on the r-th key (at most
+    ``_pair_slots(r, S)``), and a select kernel orders each query's
+    ``min(r, p * S)`` smallest, whatever their count."""
     global LAUNCHES, TOPR_LAUNCHES
     S = blocks.shape[1]
     if not fused_topr(r, S):
         raise ValueError(f"expand_topr: need 1 <= r <= {TOPR_MAX_R} and "
                          f"S <= {TOPR_MAX_S}, got r={r}, S={S}")
+    if route not in (None, "grouped", "ring"):
+        raise ValueError(f"expand_topr: unknown route {route!r}")
+    p = bids.shape[1]
+    R = min(r, S)
+    if route is not None and route not in topr_routes(p, r, S):
+        raise ValueError(f"expand_topr: the grouped route merges at most "
+                         f"{GROUPED_MAX_KEYS} keys a query, got p * "
+                         f"min(r, S) = {p * R}")
     if blocks.device.type == "cpu":
         return expand_topr_reference(
             blocks, blocks_sq, block_ids, q, q_sq, bids, metric, r, q8=q8,
             q_scale=q_scale, score_scale=score_scale, allowed=allowed)
-    p = bids.shape[1]
-    R = min(r, S)
+    if route is None:
+        route = topr_route(bids.shape[0], p, r, blocks.shape[0], S,
+                           blocks.shape[2] * blocks.element_size())
+    C = p * (R if route == "grouped" else _pair_slots(R, S))
     mode, vec, args, _keep, (B, Q, p, S, row_bytes) = _operands(
         "expand_topr", blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
-        q8, q_scale, score_scale, allowed, C=p * _pair_slots(R, S))
+        q8, q_scale, score_scale, allowed, C=C, route=route)
     rq = min(r, p * S)
     dev = blocks.device
     top = (torch.empty((Q, rq), dtype=torch.float32, device=dev),
            torch.empty((Q, rq), dtype=torch.int64, device=dev))
-    _launch("expand_topr_launch", dev,
+    _launch("expand_topr_grouped_launch" if route == "grouped"
+            else "expand_topr_launch", dev,
             [mode, vec] + args
             + [B, Q * p, p, S, row_bytes, int(metric is Metric.L2), R,
                top[0].data_ptr(), top[1].data_ptr(), rq])
     LAUNCHES += 1
     TOPR_LAUNCHES += 1
+    TOPR_ROUTE_LAUNCHES[route] += 1
     return top
