@@ -31,7 +31,13 @@ plain version):
    the routed bids of the first 1024 queries; a ``torch.profiler``
    breakdown of one 1024-query ``search_device`` chunk (top device ops,
    device-busy time over the unprofiled host wall time); the oracle timed
-   beside the ``torch.topk``-order scan it replaced; the same chunk
+   beside the ``torch.topk``-order scan it replaced; the default flat scan
+   and ``FlatIndex(scan_dtype="int8")`` over the oracle's table in turns
+   (``int8_scan_timing``: QPS, recall@10 >= 0.99 for int8, build seconds,
+   resident and peak memory, a profiled 1024-query call of each by op
+   class, one tile of each in its parts (GEMM, epilogue, keyed select)
+   and the bytes ``torch._int_mm`` allocates beyond its product); the
+   same chunk
    under ``utils/profiling.trace``: device and host ms of the ``route``
    and ``expand`` ranges, and the host cost of an annotation outside a
    trace;
@@ -60,7 +66,9 @@ plain version):
    it must pick the bench's fastest engine, or fail only as the structure
    gate's known reference defect (ROADMAP queue 3), recorded as an
    expected failure; then the graph engine on the same rows
-   (bulk build, bench.py's ladder, QPS, graph-routed ``BlockHnswIndex``,
+   (bulk build, and again with ``refine_rounds=1``: its stages and recall
+   at the ladder's first two points beside the default build's; bench.py's
+   ladder, QPS, graph-routed ``BlockHnswIndex``,
    graph add/delete/compact/iterative/save-load);
 6. ``IvfFlatIndex(128, L2, lists=1000)`` on the same rows: build, recall@10
    and QPS (``utils/evalharness.measure_qps``) at probes 1-32, peak
@@ -76,8 +84,10 @@ plain version):
 7. config D at full width: ``synthetic_clustered(10_000_000, 96,
    n_queries=8192, seed=13)`` L2-normalised, 8 hash partitions of
    ``BlockHnswIndex`` (inner product, block 256), the exact oracle over all
-   rows; ``expand_topr`` at d=96 IP against its plain version; recall@10
-   over the probe grid to the first point >= 0.95, QPS there, 8
+   rows and the int8 flat scan beside the default one on its table
+   (``int8_scan_timing``, the first 4,096 queries); ``expand_topr`` at
+   d=96 IP against its plain version; recall@10 over the probe grid to the
+   first point >= 0.95, QPS there, 8
    ``expand_topr`` launches a chunk, a profiled chunk, the host-loop
    ``search`` against ``search_device`` (equal up to tied distances), peak
    memory; then the same index through ``sharded()``: ids against the host
@@ -173,6 +183,7 @@ from contextlib import contextmanager
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tpu_hnsw_torch import (BinaryFlatIndex, BinaryHnswIndex, BlockHnswIndex,
                             FlatIndex, HnswConfig, HnswIndex, IvfFlatIndex,
@@ -182,6 +193,8 @@ from tpu_hnsw_torch import bench as BN
 from tpu_hnsw_torch import planner as PL
 from tpu_hnsw_torch.index.block import (_make_score_copy, _pad_cols,
                                         _quantize_rows, _route_exact)
+from tpu_hnsw_torch.index import flat as FL
+from tpu_hnsw_torch.index.build_cluster import build_bulk
 from tpu_hnsw_torch.io import datasets as DS
 from tpu_hnsw_torch.io import native
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
@@ -566,11 +579,15 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
     return rec
 
 
-def device_breakdown(fn, card: str, what: str, top: int = 8) -> dict:
+def device_breakdown(fn, card: str, what: str, top: int = 8,
+                     classes: dict | None = None) -> dict:
     """torch.profiler over one call of ``fn``: the top CUDA ops by device
     time, the count of device ops, and device-busy time over the host
     wall time of a call (the median of five unprofiled calls after two
-    warm-ups, each ending in a synchronize)."""
+    warm-ups, each ending in a synchronize). ``classes`` (name -> key
+    substrings) adds the device ms and busy share of each class, the first
+    class whose substring is in an op's full name taking it, the rest
+    "other"."""
     from torch.profiler import ProfilerActivity, profile
 
     walls = []
@@ -600,10 +617,21 @@ def device_breakdown(fn, card: str, what: str, top: int = 8) -> dict:
            "kernels": sum(o[1] for o in ops),
            "top": [{"op": k[:80], "ms": us / 1e3, "count": c}
                    for us, c, k in ops[:top]]}
+    if classes:
+        by = {name: {"ms": 0.0, "count": 0} for name in (*classes, "other")}
+        for us, c, k in ops:
+            name = next((n for n, subs in classes.items()
+                         if any(x in k for x in subs)), "other")
+            by[name]["ms"] += us / 1e3
+            by[name]["count"] += c
+        for v in by.values():
+            v["share"] = v["ms"] / busy if busy else 0.0
+        rec["classes"] = by
     print(f"device breakdown, {what}: host wall {rec['host_wall_ms']:.3f} "
           f"ms, device busy {busy:.3f} ms ({rec['busy_share']:.1%}), "
-          f"{rec['kernels']} device ops; top {json.dumps(rec['top'])} "
-          f"[{card}]", flush=True)
+          f"{rec['kernels']} device ops; top {json.dumps(rec['top'])}"
+          + (f"; by class {json.dumps(rec['classes'])}" if classes else "")
+          + f" [{card}]", flush=True)
     return rec
 
 
@@ -719,6 +747,129 @@ def oracle_timing(oracle, qdev, card: str):
     return gt.cpu().numpy(), rec
 
 
+#: op classes of a flat scan's device time (``device_breakdown``): the
+#: GEMMs (cuBLAS f32 and int8), the keyed top-k (radix select and sorts),
+#: copies (dtype casts and any layout copy); the rest ("other") is the
+#: score epilogue and the select's key arithmetic
+SCAN_CLASSES = {"gemm": ("gemm", "Gemm", "xmma", "cutlass", "cublas"),
+                "topk": ("topk", "TopK", "radix", "Radix", "sort", "Sort",
+                         "Kth", "bitonic"),
+                "copy": ("copy",)}
+
+
+def int8_scan_timing(flat, qdev, gt: np.ndarray, card: str,
+                     what: str) -> dict:
+    """``FlatIndex(scan_dtype="int8")`` over ``flat``'s own device table
+    (the f32 table shared, its int8 copy and scales added) beside the
+    default scan of the same table: each index's build seconds; the two
+    ``search_device`` calls over every query in turns (default, int8, int8,
+    default; host clock around synchronized calls), QPS from the mean of
+    each pair; recall@10 against ``gt`` (int8 must reach 0.99, the
+    reference test's floor); device memory resident and the peak above it
+    during a call; a profiled 1024-query call of each, by op class; one
+    tile of each scan against those queries in its parts (GEMM, score
+    epilogue, the keyed select of 40 candidates; CUDA events), each part's
+    share of the profiled call at that call's tile count; and the bytes
+    ``torch._int_mm`` allocates beyond its product (a hidden copy of the
+    transposed tile would add the tile's bytes)."""
+    out = {"of": what, "Q": qdev.shape[0], "N": flat.n, "d": flat.dim}
+    scans = {}
+    for name, kw in (("default", {}), ("int8", {"scan_dtype": "int8"})):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        scans[name] = FlatIndex(flat.vectors, flat.metric, **kw)
+        torch.cuda.synchronize()
+        out[f"{name}_build_s"] = time.perf_counter() - t0
+        out[f"{name}_index_GB"] = (torch.cuda.memory_allocated() - before
+                                   + flat.vectors.numel() * 4) / 1e9
+    for f in scans.values():  # warm-up: cuBLAS(Lt) and allocator state
+        f.search_device(qdev[:CHUNK], k=10)
+    ms, ids = {"default": [], "int8": []}, {}
+    for name in ("default", "int8", "int8", "default"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _, i = scans[name].search_device(qdev, k=10)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_search_peak_GB"] = (torch.cuda.max_memory_allocated()
+                                         - resident) / 1e9
+        ids[name] = i.cpu().numpy()
+    for name in ms:
+        out[f"{name}_ms_all"] = ms[name]
+        out[f"{name}_qps"] = qdev.shape[0] / (float(np.mean(ms[name])) / 1e3)
+        out[f"{name}_recall"] = recall_at_k(ids[name], gt, 10)
+    out["int8_over_default_qps"] = out["int8_qps"] / out["default_qps"]
+    print(f"flat scans at {what}, {qdev.shape[0]} queries, k=10: default "
+          f"{out['default_qps']:.1f} QPS (calls {ms['default']} ms, recall@10 "
+          f"{out['default_recall']:.4f}, build {out['default_build_s']:.3f} "
+          f"s, index {out['default_index_GB']:.3f} GB, search peak above "
+          f"it {out['default_search_peak_GB']:.3f} GB); int8 "
+          f"{out['int8_qps']:.1f} QPS (calls {ms['int8']} ms, recall@10 "
+          f"{out['int8_recall']:.4f}, build {out['int8_build_s']:.3f} s, "
+          f"index {out['int8_index_GB']:.3f} GB, search peak above it "
+          f"{out['int8_search_peak_GB']:.3f} GB); int8 / default QPS "
+          f"{out['int8_over_default_qps']:.3f} [{card}]", flush=True)
+    assert out["int8_recall"] >= 0.99, out
+    q1 = qdev[:CHUNK]
+    out["breakdown"] = {name: device_breakdown(
+        lambda f=f: f.search_device(q1, k=10), card,
+        f"{name} flat scan at {what}, one {CHUNK}-query search_device call",
+        top=12, classes=SCAN_CLASSES) for name, f in scans.items()}
+    # one tile of each scan in its parts, at the scan's shapes
+    i8 = scans["int8"]
+    tile = min(i8._tile, flat.n)
+    tile -= tile % 8
+    xb8, scl = i8._xs8[:tile], i8._scales[:tile]
+    qf = q1.contiguous()
+    q8, q_scl = FL._quantize_rows(F.pad(qf, (0, xb8.shape[1] - flat.dim)))
+    torch._int_mm(q8, xb8.T)  # warm-up: cuBLASLt's workspace is kept
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    dots_i = torch._int_mm(q8, xb8.T)
+    torch.cuda.synchronize()
+    out["int_mm_extra_bytes"] = (torch.cuda.max_memory_allocated() - before
+                                 - dots_i.numel() * 4)
+    assert out["int_mm_extra_bytes"] < xb8.numel(), \
+        f"torch._int_mm copied the transposed tile: {out}"
+    xb32, q_sq, x_sq = flat.vectors[:tile], (qf * qf).sum(1), \
+        flat.vectors_sq[:tile]
+    dots_f = qf @ xb32.T
+
+    def tail(dots):  # the L2 or IP step both scans share
+        if flat.metric is Metric.L2:
+            return torch.clamp_min(q_sq[:, None] + x_sq[None, :] - 2.0 * dots,
+                                   0.0)
+        return -dots
+
+    sc = tail(dots_f)
+    cand = 40  # 4k candidates a tile at k = 10
+    parts = {"default": {"gemm": lambda: qf @ xb32.T,
+                         "epilogue": lambda: tail(dots_f)},
+             "int8": {"gemm": lambda: torch._int_mm(q8, xb8.T),
+                      "epilogue": lambda: tail(
+                          dots_i.float() * (q_scl[:, None] * scl[None, :]))}}
+    select_ms = cuda_ms(lambda: T.topk_smallest_by_index(sc, cand), 5)
+    tiles = -(-flat.n // i8._tile)
+    out["tile_parts"] = {"rows": tile, "tiles_per_call": tiles}
+    for name, fns in parts.items():
+        rec = {part: cuda_ms(fn, 10) for part, fn in fns.items()}
+        rec["keyed_select"] = select_ms
+        busy = out["breakdown"][name]["device_busy_ms"]
+        rec["share_of_call"] = {part: tiles * ms / busy
+                                for part, ms in list(rec.items())}
+        out["tile_parts"][name] = rec
+    print(f"flat scan parts of one {tile}-row tile against {CHUNK} queries "
+          f"(CUDA events; share of the profiled call's device time at "
+          f"{tiles} tiles a call): {json.dumps(out['tile_parts'])}; bytes "
+          f"torch._int_mm allocated beyond its product "
+          f"{out['int_mm_extra_bytes']} [{card}]", flush=True)
+    return out
+
+
 def main_path(base: np.ndarray, queries: np.ndarray, card: str,
               dev: torch.device):
     """Build twice, grade, pick probes, measure QPS. Returns the numbers
@@ -739,6 +890,8 @@ def main_path(base: np.ndarray, queries: np.ndarray, card: str,
     oracle = FlatIndex(xdev, Metric.L2)
     qdev = torch.from_numpy(queries).to(dev)
     gt, out["oracle"] = oracle_timing(oracle, qdev, card)
+    out["flat_int8"] = int8_scan_timing(oracle, qdev, gt, card,
+                                        f"{N} x {DIM} L2")
     launches_before_search = X.LAUNCHES
     chosen = None
     for p in (p for p in PROBE_GRID if p <= idx.n_blocks):
@@ -1287,6 +1440,12 @@ def graph_phase(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
     out["build_s"] = time.perf_counter() - t0
     out["build_vps"] = N / out["build_s"]
     out["build_stages"] = idx.build_stats["stages"]
+    idx_r = HnswIndex(cfg, device=dev)
+    t0 = time.perf_counter()
+    build_bulk(idx_r, xdev, refine_rounds=1)
+    torch.cuda.synchronize()
+    refine = {"build_s": time.perf_counter() - t0,
+              "stages": idx_r.build_stats["stages"]}
     del xdev
     st = idx.stats()
     out["bytes_per_element"] = st["bytes_per_element"]
@@ -1304,6 +1463,20 @@ def graph_phase(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
     exact = np.sqrt(((queries[:, None, :] - base[ids]) ** 2).sum(-1))
     assert np.abs(d.astype(np.float64) ** 2 - exact.astype(np.float64) ** 2
                   ).max() <= sq_bound(base, queries), "graph distances"
+    # one NN-descent round (refine_rounds=1) beside the default build, at
+    # the ladder's first two points
+    refine["recall"] = [{
+        **ladder_kw(p), "refine0": recall_at_k(
+            idx.search(qdev, k=10, **ladder_kw(p))[1], gt, 10),
+        "refine1": recall_at_k(
+            idx_r.search(qdev, k=10, **ladder_kw(p))[1], gt, 10)}
+        for p in GRAPH_LADDER[:2]]
+    del idx_r
+    out["refine"] = refine
+    print(f"graph bulk build with refine_rounds=1: {refine['build_s']:.3f} s "
+          f"(refine_rounds=0: {out['build_s']:.3f} s), stages "
+          f"{json.dumps(refine['stages'])}; recall@10 at the ladder's first "
+          f"two points {json.dumps(refine['recall'])} [{card}]", flush=True)
     out["qps"], out["qps_windows"] = qps_windows(
         lambda s: idx.search_device(qdev[s:s + CHUNK], k=10, **kw)[1], NQ)
     _, _, counters = idx.search_with_stats(qdev, k=10, **kw)
@@ -2169,11 +2342,13 @@ def config_d_phase(card: str, dev: torch.device, data) -> dict:
                                        exact=True)[1]
                          for s in range(0, D_NQ, CHUNK)])
     out["oracle_s"] = time.perf_counter() - t0
-    del oracle
-    torch.cuda.empty_cache()
     print(f"config D data {base.shape} in {out['data_s']:.1f} s; exact "
           f"oracle over {D_N} rows, {D_NQ} queries in {CHUNK}-query chunks: "
           f"{out['oracle_s']:.3f} s [{card}]", flush=True)
+    out["flat_int8"] = int8_scan_timing(oracle, qdev[:NQ], gt[:NQ], card,
+                                        f"config D {D_N} x {D_DIM} IP")
+    del oracle
+    torch.cuda.empty_cache()
 
     cfg = HnswConfig(dim=D_DIM, metric=Metric.IP, m=16, ef_construction=64,
                      seed=0)

@@ -128,16 +128,17 @@ def test_l1_matches_reference():
 
 def test_reference_keywords_accepted():
     """The reference's ``scan_dtype`` and ``block`` keywords: "default"
-    scans as before, "int8" is not ported and says so (L1 ignores it, as
-    the reference does), anything else is a ValueError; ``block`` is
+    scans as before, "int8" builds its int8 copy and searches (L1 ignores
+    it, as the reference does), anything else is a ValueError; ``block`` is
     ignored."""
     base, q = synthetic_clustered(300, 8, n_queries=4, seed=5)
     want = FlatIndex(base, device="cpu").search(q, k=5)
     flat = FlatIndex(base, scan_dtype="default", device="cpu")
     for got in (flat.search(q, k=5, block=4096), flat.search(q, 5, 0)):
         np.testing.assert_array_equal(got[1], want[1])
-    with pytest.raises(NotImplementedError, match="Do not port"):
-        FlatIndex(base, scan_dtype="int8", device="cpu")
+    i8 = FlatIndex(base, scan_dtype="int8", device="cpu")
+    assert i8.scan_dtype == "int8" and i8._xs8.dtype == torch.int8
+    np.testing.assert_array_equal(i8.search(q, k=5, block=4096)[1], want[1])
     assert FlatIndex(base, Metric.L1, scan_dtype="int8",
                      device="cpu").scan_dtype == "default"
     with pytest.raises(ValueError, match="scan_dtype"):

@@ -8,7 +8,12 @@ against tpu_hnsw's and the numpy oracle.
 - the bulk build (k-means path): centroids equal JAX's (atol 1e-3, as
   tests/test_torch_kmeans.py states: f32 products in other summation
   orders can move a near-tie row), levels equal, invariants, recall@10
-  within 0.01 of JAX's.
+  within 0.01 of JAX's;
+- its NN-descent refinement (``refine_rounds``): the candidates equal
+  JAX's on one shared graph, duplicates and sentinel rows included, and
+  so does the selection over them; a refine-1 build holds the invariants,
+  recall@10 within 0.01 of JAX's refine-1 build and JAX's build_stats
+  keys.
 """
 
 import numpy as np
@@ -162,12 +167,93 @@ def test_bulk_build_matches_jax(bulk):
     check_invariants(idx, reachable=False)
     st = idx.build_stats
     assert st["mode"] == "bulk" and st["n"] == 3000
+    assert st["refine_rounds"] == 0
     assert set(st["stages"]) >= {"kmeans_route_pack", "cluster_candidates",
-                                 "link_l0", "upper_levels", "total"}
+                                 "link_l0", "nn_descent_refine",
+                                 "upper_levels", "total"}
     for ef in (16, 40):
         r = recall_at_k(idx.search(queries, k=10, ef_search=ef)[1], gt, 10)
         jr = recall_at_k(jidx.search(queries, k=10, ef_search=ef)[1], gt, 10)
         assert r >= 0.95 and abs(r - jr) <= 0.01, (ef, r, jr)
+
+
+@pytest.fixture(scope="module")
+def bulk_refine(bulk):
+    """The bulk fixture's rows built again by both packages with one
+    NN-descent round; JAX reuses the stage programs the fixture compiled."""
+    from tpu_hnsw.index import build_cluster as JBC
+
+    base, queries, cfg, idx0, _, _, gt = bulk
+    idx = HnswIndex(cfg, device="cpu")
+    BC.build_bulk(idx, base, cluster_size=256, refine_rounds=1)
+    jidx = _jax_index(cfg)
+    JBC.build_bulk(jidx, base, cluster_size=256, refine_rounds=1)
+    return queries, idx0, idx, jidx, gt
+
+
+def test_refine_build_matches_jax(bulk_refine):
+    """refine_rounds=1: the graph invariants, recall@10 within 0.01 of the
+    reference's refine-1 build at ef 16 and 40, and build_stats with the
+    reference's keys (the round's stage included); the round relinks level
+    0 (the graph differs from the refine-0 build's)."""
+    queries, idx0, idx, jidx, gt = bulk_refine
+    check_invariants(idx, reachable=False)
+    st, jst = idx.build_stats, jidx.build_stats
+    assert set(st) == set(jst) and set(st["stages"]) == set(jst["stages"])
+    assert st["refine_rounds"] == jst["refine_rounds"] == 1
+    assert not torch.equal(idx.graph.neighbors0, idx0.graph.neighbors0)
+    assert torch.equal(idx.graph.upper_nbrs, idx0.graph.upper_nbrs)
+    for ef in (16, 40):
+        r = recall_at_k(idx.search(queries, k=10, ef_search=ef)[1], gt, 10)
+        jr = recall_at_k(jidx.search(queries, k=10, ef_search=ef)[1], gt, 10)
+        assert r >= 0.95 and abs(r - jr) <= 0.01, (ef, r, jr)
+
+
+def test_non_candidates_and_their_selection_match_jax():
+    """One RefHnsw graph over small-integer rows (exact distances that tie
+    everywhere) carried into both packages, with empty rows past n and the
+    sentinel among the node ids: the refinement's candidates equal the
+    reference's, hold duplicates (a neighbour reached directly and through
+    another neighbour), and their exact rescores and the selection over
+    them (trim to ef_construction, then SelectNeighbors, which takes a
+    duplicate once) equal the reference's."""
+    import jax.numpy as jnp
+
+    from tpu_hnsw.config import HnswConfig as JCfg
+    from tpu_hnsw.config import Metric as JMetric
+    from tpu_hnsw.index import build_cluster as JBC
+    from tpu_hnsw.index import graph as JG
+    from tpu_hnsw_torch.index import graph as G
+
+    rng = np.random.default_rng(8)
+    base = rng.integers(-2, 3, size=(200, 8)).astype(np.float32)
+    cfg = HnswConfig(dim=8, m=4, ef_construction=16, seed=3)
+    ref = RefHnsw(cfg)
+    ref.build(base)
+    g, _, _ = G.from_ref(ref, cfg, cap=256)
+    jg, _, _ = JG.from_ref(ref, JCfg(dim=8, m=4, ef_construction=16, seed=3),
+                           cap=256)
+    nid = np.r_[np.arange(240), [256] * 16].astype(np.int32)
+    ci = BC._non_candidates(g, torch.from_numpy(nid), r2=BC.REFINE_R2)
+    jci = JBC._non_candidates(jg, jnp.asarray(nid), r2=BC.REFINE_R2)
+    np.testing.assert_array_equal(ci.numpy(), np.asarray(jci))
+    assert ci.shape == (256, cfg.m0 * (1 + BC.REFINE_R2))
+    assert (ci[200:] == 256).all()  # empty rows and the sentinel
+    live = ci[:200].numpy()
+    dup = [len(set(r[r != 256])) < (r != 256).sum() for r in live]
+    assert np.mean(dup) > 0.5
+    cd = BC._rescore_chunk(g, torch.from_numpy(nid), ci, metric=Metric.L2)
+    jcd = JBC._rescore_chunk(jg, jnp.asarray(nid), jci, metric=JMetric.L2)
+    np.testing.assert_array_equal(cd.numpy(), np.asarray(jcd))
+    si, sd = BC._select_chunk(g, ci, cd, lm=cfg.m0, metric=Metric.L2,
+                              trim=cfg.ef_construction)
+    jsi, jsd = JBC._select_chunk(jg, jci, jcd, lm=cfg.m0, metric=JMetric.L2,
+                                 trim=cfg.ef_construction)
+    np.testing.assert_array_equal(si.numpy(), np.asarray(jsi))
+    np.testing.assert_array_equal(sd.numpy(), np.asarray(jsd))
+    for r in si.numpy():
+        r = r[r != 256]
+        assert len(set(r)) == len(r)
 
 
 def test_bulk_upper_levels_keep_the_trash_slot(bulk):

@@ -7,19 +7,70 @@ merge, all in ``lax.top_k``'s order (ties to the lower row), so the
 oracle's ids equal the reference's at ties too. ``exact=True`` keeps the
 top-k of the f32 scan itself (the oracle); the default keeps ``4k``
 candidates per tile and re-ranks them with exact elementwise f32
-distances. Queries go through in slices of at most ``QUERY_ELEMS / tile``
-rows, which bounds the ``[Q, tile]`` scores and their int64 sort keys.
+distances. ``scan_dtype="int8"`` finds those candidates with an int32
+product of int8 copies instead (``torch._int_mm``). Queries go through in
+slices of at most ``QUERY_ELEMS / tile`` rows, which bounds the
+``[Q, tile]`` scores and their int64 sort keys.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tpu_hnsw_torch.config import Metric
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.utils.device import entry_device
+
+#: ``torch._int_mm`` on CUDA takes more than 16 rows on the left, and inner
+#: and right widths that are multiples of 8
+INT_MM_MIN_ROWS = 17
+INT_MM_ALIGN = 8
+
+#: the reference's ``amax / 127.0`` as XLA computes it: a division by a
+#: constant becomes a product with the constant's f32 reciprocal, so scales
+#: taken this way equal the reference's bit for bit (a true division differs
+#: in the last bit for some rows)
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _align(v: int) -> int:
+    return -(-v // INT_MM_ALIGN) * INT_MM_ALIGN
+
+
+def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantisation of f32 rows (flat.py:101-104,
+    214-221): (int8 rows, f32 scales), ``row ~= q8 * scale``."""
+    scl = torch.clamp_min(x.abs().amax(dim=1), 1e-30) * INV_127
+    q8 = torch.clamp(torch.round(x / scl[:, None]), -127, 127).to(torch.int8)
+    return q8, scl
+
+
+def _running_topk(score_tile, n_rows: int, tile: int, k: int, nq: int,
+                  device):
+    """The k best of ``n_rows`` rows scored a tile at a time
+    (``score_tile(off)`` gives ``[nq, w]`` scores of rows ``off..off+w``).
+    Returns (scores ``[nq, k]``, row positions ``[nq, k]``, -1 where fewer
+    than k finite scores exist), ascending by (score, row)."""
+    best_d = torch.full((nq, 0), torch.inf, device=device)
+    best_i = torch.full((nq, 0), -1, dtype=torch.int64, device=device)
+    for off in range(0, n_rows, tile):
+        sc = score_tile(off)
+        tv, ti = T.topk_smallest_by_index(sc, min(k, sc.shape[1]))
+        # the running best holds lower rows than this tile: it goes first
+        vals, sel = T.topk_smallest_by_index(
+            torch.cat([best_d, tv], 1),
+            min(k, best_d.shape[1] + tv.shape[1]))
+        best_i = torch.gather(torch.cat([best_i, ti + off], 1), 1, sel)
+        best_d = vals
+    if best_d.shape[1] < k:  # fewer rows than k
+        pad = k - best_d.shape[1]
+        best_d = F.pad(best_d, (0, pad), value=torch.inf)
+        best_i = F.pad(best_i, (0, pad), value=-1)
+    best_i = torch.where(torch.isfinite(best_d), best_i, -1)
+    return best_d, best_i
 
 
 def _stream_search(q, xs, xs_sq, valid, k: int, metric: Metric, tile: int):
@@ -28,13 +79,11 @@ def _stream_search(q, xs, xs_sq, valid, k: int, metric: Metric, tile: int):
     fewer than k valid rows exist), ascending by (score, row)."""
     if metric not in (Metric.L2, Metric.IP, Metric.COSINE, Metric.L1):
         raise NotImplementedError(f"{metric} flat scan")
-    nq = q.shape[0]
     q_sq = D.squared_norms(q)
     # a bf16 table meets a bf16-rounded query with f32 products and sums
     qx = q.to(xs.dtype).float()
-    best_d = torch.full((nq, 0), torch.inf, device=q.device)
-    best_i = torch.full((nq, 0), -1, dtype=torch.int64, device=q.device)
-    for off in range(0, xs.shape[0], tile):
+
+    def score_tile(off):
         xb = xs[off:off + tile].float()
         if metric is Metric.L1:
             sc = torch.cdist(qx, xb, p=1)
@@ -48,19 +97,41 @@ def _stream_search(q, xs, xs_sq, valid, k: int, metric: Metric, tile: int):
                 sc = -dots
         if valid is not None:
             sc = torch.where(valid[None, off:off + tile], sc, torch.inf)
-        tv, ti = T.topk_smallest_by_index(sc, min(k, xb.shape[0]))
-        # the running best holds lower rows than this tile: it goes first
-        vals, sel = T.topk_smallest_by_index(
-            torch.cat([best_d, tv], 1),
-            min(k, best_d.shape[1] + tv.shape[1]))
-        best_i = torch.gather(torch.cat([best_i, ti + off], 1), 1, sel)
-        best_d = vals
-    if best_d.shape[1] < k:  # fewer rows than k
-        pad = k - best_d.shape[1]
-        best_d = torch.nn.functional.pad(best_d, (0, pad), value=torch.inf)
-        best_i = torch.nn.functional.pad(best_i, (0, pad), value=-1)
-    best_i = torch.where(torch.isfinite(best_d), best_i, -1)
-    return best_d, best_i
+        return sc
+
+    return _running_topk(score_tile, xs.shape[0], tile, k, q.shape[0],
+                         q.device)
+
+
+def _stream_search_int8(q, xs8, xs_sq, scales, k: int, metric: Metric,
+                        tile: int, n: int):
+    """Tiled int8 scan (flat.py:94-141): ``xs8 [N8, dp]`` int8 rows
+    (``N8`` and ``dp`` padded to multiples of ``INT_MM_ALIGN``), ``scales
+    [N8]`` their per-row dequantisation, ``xs_sq [n]`` exact f32 squared
+    norms of the ``n`` real rows. Each tile is an int32 product of the
+    symmetric int8 queries against the tile, dequantised, then L2 from the
+    exact norms or the negated product. Returns what :func:`_stream_search`
+    returns; padded rows never reach the select."""
+    if metric not in (Metric.L2, Metric.IP, Metric.COSINE):
+        raise NotImplementedError(f"{metric} int8 flat scan")
+    nq = q.shape[0]
+    q_sq = D.squared_norms(q)
+    q8, q_scl = _quantize_rows(F.pad(q, (0, xs8.shape[1] - q.shape[1])))
+    q8 = F.pad(q8, (0, 0, 0, max(0, INT_MM_MIN_ROWS - nq)))
+    tile = _align(tile)
+
+    def score_tile(off):
+        w = min(tile, n - off)
+        # the contiguous [tile, dp] rows, transposed: cuBLASLt's int8 layout
+        dots_i = torch._int_mm(q8, xs8[off:off + tile].T)[:nq, :w]
+        # the reference's order of operations: equal scores on the CPU
+        dots = dots_i.float() * (q_scl[:, None] * scales[None, off:off + w])
+        if metric is Metric.L2:
+            return torch.clamp_min(
+                q_sq[:, None] + xs_sq[None, off:off + w] - 2.0 * dots, 0.0)
+        return -dots
+
+    return _running_topk(score_tile, n, tile, k, nq, q.device)
 
 
 def _rerank(q, x, cand_ids, metric: Metric, k: int, n: int):
@@ -77,10 +148,12 @@ def _rerank(q, x, cand_ids, metric: Metric, k: int, n: int):
 
 class FlatIndex:
     """Exact KNN over a device-resident vector table; ``device`` holds it
-    (default: the card; raises without one). ``scan_dtype`` is the
-    reference's keyword: "default" is the scan above; its "int8" scoring
-    copy is not ported (ROADMAP.md, "Do not port these") and raises, except
-    for L1, which ignores it as the reference does."""
+    (default: the card; raises without one). ``scan_dtype="int8"`` adds an
+    int8 scoring copy of the table with per-row scales (quantised
+    ``BLOCK`` rows at a time, which bounds the f32 temporaries) that the
+    default search scans for its candidates before the exact f32 rerank;
+    ``exact=True`` never reads it, and L1, which has no product form,
+    ignores the option, as the reference does."""
 
     BLOCK = 131072
     #: scores per query slice: 1024 queries at a full tile (their int64
@@ -91,11 +164,7 @@ class FlatIndex:
                  scan_dtype: str = "default", device=None):
         if scan_dtype not in ("default", "int8"):
             raise ValueError("scan_dtype must be default|int8")
-        if scan_dtype == "int8" and metric is not Metric.L1:
-            raise NotImplementedError(
-                "FlatIndex(scan_dtype='int8') is not ported (ROADMAP.md, "
-                "'Do not port these')")
-        self.scan_dtype = "default"
+        self.scan_dtype = "default" if metric is Metric.L1 else scan_dtype
         if not isinstance(vectors, torch.Tensor):
             vectors = torch.from_numpy(np.asarray(vectors, np.float32))
         vectors = vectors.to(device=entry_device(device),
@@ -109,6 +178,15 @@ class FlatIndex:
         self.dim = int(vectors.shape[1])
         self._tile = min(self.BLOCK, 1 << (max(self.n - 1, 1)).bit_length())
         self.vectors_sq = D.squared_norms(vectors)
+        self._xs8 = self._scales = None
+        if self.scan_dtype == "int8":
+            self._xs8 = torch.zeros((_align(self.n), _align(self.dim)),
+                                    dtype=torch.int8, device=self.device)
+            self._scales = torch.zeros(_align(self.n), device=self.device)
+            for s in range(0, self.n, self.BLOCK):
+                e = min(self.n, s + self.BLOCK)
+                self._xs8[s:e, :self.dim], self._scales[s:e] = \
+                    _quantize_rows(vectors[s:e].float())
 
     @property
     def size(self) -> int:
@@ -145,8 +223,13 @@ class FlatIndex:
             return _stream_search(q, self.vectors, self.vectors_sq, None, k,
                                   self.metric, self._tile)
         cand = min(4 * k, self.n)
-        _, cand_ids = _stream_search(q, self.vectors, self.vectors_sq, None,
-                                     cand, self.metric, self._tile)
+        if self._xs8 is not None:
+            _, cand_ids = _stream_search_int8(
+                q, self._xs8, self.vectors_sq, self._scales, cand,
+                self.metric, self._tile, self.n)
+        else:
+            _, cand_ids = _stream_search(q, self.vectors, self.vectors_sq,
+                                         None, cand, self.metric, self._tile)
         return _rerank(q, self.vectors, cand_ids, self.metric, k, self.n)
 
     def search(self, queries, k: int = 10, block: int = 0, exact=None):

@@ -105,11 +105,11 @@ def estimate_flat_qps(n: int, dim: int, *, batch: int = 4096,
     return batch / t
 
 
-#: speedup of an int8 flat scan over the default f32 scan. 1.0 by
-#: construction, not by measurement: the port has no int8 flat scan (the
-#: reference's ``FlatIndex(scan_dtype="int8")`` measured parity on its
-#: device and was not ported), so the planner prices flat_int8 as flat
-#: and never prefers it.
+#: speedup of an int8 flat scan (``FlatIndex(scan_dtype="int8")``) over the
+#: default f32 scan: 1.0, the reference's value (it measured parity on its
+#: device), so the planner prices flat_int8 as flat, never prefers it, and
+#: gives the reference's plans. The H100's measured ratio is in PERF.md
+#: (``chip_smoke.py``'s ``int8_scan_timing``), not here.
 INT8_SCAN_SPEEDUP = 1.0
 
 
