@@ -1,6 +1,7 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py config_e    # the kernel builds and phase 8 alone
 
 Phases (any failure exits non-zero; nothing falls back to the CPU or to a
 plain version):
@@ -96,7 +97,25 @@ plain version):
    serving peak beside the host loop's, and ``expand_topr`` at the stacked
    shape (8,192 virtual queries over the 41,016 stacked blocks) against
    its plain version and timed;
-8. the lockstep build (``parallel/mesh_build.py``): 8 hash partitions of
+8. config E's per-card shard at full width: 25M x 512 bf16 cosine (a
+   quarter of LAION-100M, ``BASELINE.json`` config E, over four cards) as
+   eight hash partitions of ``scripts/config_e_12m5.py``'s shape (3.125M
+   rows, block 128, slack 1.10, a bf16 scoring copy aliasing the blocks),
+   its recipe drawn on the card: each part built, graded against the
+   exact oracle over its stored rows, saved to a temporary directory (the
+   disk must hold about 28.6 GB, or the phase raises) and freed in turn;
+   the oracle merged over the parts; ``ShardedBlockSearcher.from_saved``
+   (seconds, stacked bytes above 2^32, ``blocks_score is blocks``, peak
+   within the serving bytes plus two slabs and 16 MB); with its counters
+   at 0, recall@10 and QPS (``measure_qps``, 256-query chunks) at the
+   reference's 8, 17 and 34 probes a partition (doubled up to 136 until
+   one reaches 0.95) beside the reference's curve, one ``expand_topr``
+   launch a chunk, distinct ids in range, distances equal to 1 - q.x of
+   the stored rows, a profiled chunk; then ``expand_topr`` in bf16 at the
+   stacked shape (2,048 virtual queries, r = 128) against its plain
+   version at routed bids (p 17, and p 8 on both routes) and at bids past
+   2^32 bytes, each timed;
+9. the lockstep build (``parallel/mesh_build.py``): 8 hash partitions of
    the graph engine over the first 200,000 of the 1M x 128 rows built with
    ``build(mesh="auto")`` against each partition's rows built by
    ``HnswIndex(capacity=25_000).build(mode="wave")`` in turn (every graph
@@ -105,7 +124,7 @@ plain version):
    the sequential bulk build's time for scale; then the lockstep build of
    all 1M rows (dense-scan seeding past 4,096 upper elements a
    partition), its time and recall@10;
-9. the sparse cell of ``scripts/config_sparse.py``: ``synthetic_splade(
+10. the sparse cell of ``scripts/config_sparse.py``: ``synthetic_splade(
    1_000_000, vocab=30522, nnz=128, n_queries=1024, seed=13)`` and
    ``SparseHnswIndex(metric="ip", engine="block", proj_dim=256,
    block_size=256, seed=0)``: the exact ``SparseFlatIndex(IP)`` oracle over
@@ -118,7 +137,7 @@ plain version):
    profiled call; then the first 100,000 rows (a cut of scale): the graph
    engine (IP), the block engine in L2 and cosine, add of rows with unseen
    coordinates, delete, compact and save/load;
-10. the binary path at full width: ``binary_quantize`` of
+11. the binary path at full width: ``binary_quantize`` of
    ``synthetic_clustered(1_000_000, 1536, n_queries=4096, seed=42)`` (the
    shape of dbpedia-entities-openai-1M, binary-quantized as pgvector's
    README does). Both hamming entries against their plain versions,
@@ -139,7 +158,7 @@ plain version):
    copy (hamming L2, jaccard cosine; masked and not), and stage 1 timed at
    the bids each index's own routing gives the first 1024 queries; a
    ``torch.profiler`` breakdown of one 1024-query hamming search;
-11. print each phase's seconds, the kernel table as one JSON line
+12. print each phase's seconds, the kernel table as one JSON line
     (launches per path, times, bounds), the card line, and last ``{"ok":
     true, "device": {...}}``.
 
@@ -152,10 +171,11 @@ Each path's kernel launch counters are set to 0 just before it and read
 just after it (a CLI subprocess prints its own counts when it ends);
 launches made to compare a kernel with its plain version are not
 counted. Stage 1 of the block, lifecycle, CLI (search and eval), bench,
-planner (``calibrate``), graph-routed, partitioned (centroid, config D and
-stacked config D), sparse and binary paths must launch ``expand_topr``
-(stacked config D once a chunk), and over all of them each of its two
-routes (``topr_route``) must have been launched; the
+planner (``calibrate``), graph-routed, partitioned (centroid, config D,
+stacked config D and config E), sparse and binary paths must launch
+``expand_topr`` (stacked config D and config E once a chunk), and over
+all of them each of its two routes (``topr_route``) must have been
+launched; the
 lifecycle's filtered ``search_iterative`` and the sparse path at rerank_k
 200 widen past the fused limit and must launch ``expand_score`` too. The
 lockstep build launches no kernel (the graph engine is torch ops); its
@@ -546,6 +566,7 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
             lambda: X.expand_topr(*args, r, route=route, **kw), 20))
     route_ms = {route: float(np.mean(v)) for route, v in turns.items()}
     rec = {"of": what, "Q": Q, "p": p, "S": S, "d": bl.shape[2], "r": r,
+           "dtype": str(bl.dtype).removeprefix("torch."),
            "distinct_blocks": distinct, "reuse": Q * p / distinct,
            "route": chosen, "grouped_ms": route_ms.get("grouped"),
            "ring_ms": route_ms["ring"], "route_turns_ms": turns,
@@ -565,9 +586,10 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
         bl, bids, kw, 8 * Q * r)
     grouped = ("n/a (keys over the merge)" if rec["grouped_ms"] is None
                else f"{rec['grouped_ms']:.4f}")
-    print(f"stage 1 {what}: Q={Q} p={p} d={rec['d']} r={r}, {distinct} "
-          f"distinct blocks (reuse {rec['reuse']:.2f}); CUDA-event ms: all "
-          f"scores {rec['all_ms']:.4f} (bound {rec['all_bound_ms']:.4f}), "
+    print(f"stage 1 {what}: {rec['dtype']} Q={Q} p={p} d={rec['d']} r={r}, "
+          f"{distinct} distinct blocks (reuse {rec['reuse']:.2f}); "
+          f"CUDA-event ms: all scores {rec['all_ms']:.4f} (bound "
+          f"{rec['all_bound_ms']:.4f}), "
           f"fused top-r {rec['fused_ms']:.4f} on the {chosen} route (bound "
           f"{rec['fused_bound_ms']:.4f}; in turns grouped {grouped}, ring "
           f"{rec['ring_ms']:.4f}, chosen faster: "
@@ -579,6 +601,13 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
     return rec
 
 
+#: host API calls that launch a kernel: a trace holding fewer kernels
+#: than these calls lost some (late in this script's run the trace drops
+#: kernels, among them the ctypes library's and cuBLAS's; config E's phase
+#: alone, ``python3 chip_smoke.py config_e``, profiles its chunk whole)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+
+
 def device_breakdown(fn, card: str, what: str, top: int = 8,
                      classes: dict | None = None) -> dict:
     """torch.profiler over one call of ``fn``: the top CUDA ops by device
@@ -587,7 +616,8 @@ def device_breakdown(fn, card: str, what: str, top: int = 8,
     warm-ups, each ending in a synchronize). ``classes`` (name -> key
     substrings) adds the device ms and busy share of each class, the first
     class whose substring is in an op's full name taking it, the rest
-    "other"."""
+    "other". ``complete`` says whether the trace holds a kernel for each
+    kernel launch call the host made (LAUNCH_CALLS)."""
     from torch.profiler import ProfilerActivity, profile
 
     walls = []
@@ -602,9 +632,10 @@ def device_breakdown(fn, card: str, what: str, top: int = 8,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ops = []
+    ops, launches = [], 0
     for ev in prof.key_averages():
         if ev.device_type.name != "CUDA":
+            launches += ev.count * ev.key.startswith(LAUNCH_CALLS)
             continue
         us = getattr(ev, "device_time_total", None)
         if us is None:
@@ -612,9 +643,12 @@ def device_breakdown(fn, card: str, what: str, top: int = 8,
         ops.append((us, ev.count, ev.key))
     ops.sort(reverse=True)
     busy = sum(o[0] for o in ops) / 1e3
+    kernels = sum(o[1] for o in ops
+                  if not o[2].startswith(("Memcpy", "Memset")))
     rec = {"of": what, "host_wall_ms": wall * 1e3, "device_busy_ms": busy,
            "busy_share": busy / (wall * 1e3),
-           "kernels": sum(o[1] for o in ops),
+           "kernels": sum(o[1] for o in ops), "device_kernels": kernels,
+           "kernel_launch_calls": launches, "complete": kernels >= launches,
            "top": [{"op": k[:80], "ms": us / 1e3, "count": c}
                    for us, c, k in ops[:top]]}
     if classes:
@@ -629,7 +663,10 @@ def device_breakdown(fn, card: str, what: str, top: int = 8,
         rec["classes"] = by
     print(f"device breakdown, {what}: host wall {rec['host_wall_ms']:.3f} "
           f"ms, device busy {busy:.3f} ms ({rec['busy_share']:.1%}), "
-          f"{rec['kernels']} device ops; top {json.dumps(rec['top'])}"
+          f"{rec['kernels']} device ops ({rec['device_kernels']} kernels "
+          f"for {rec['kernel_launch_calls']} kernel launch calls on the "
+          f"host{'' if rec['complete'] else ': the trace lost kernels'}); "
+          f"top {json.dumps(rec['top'])}"
           + (f"; by class {json.dumps(rec['classes'])}" if classes else "")
           + f" [{card}]", flush=True)
     return rec
@@ -2440,17 +2477,20 @@ STACKED_RTOL = 1e-6
 
 
 def stacked_args(sh, q, probes: int):
-    """Stage 1's operands as a stacked search makes them (int8 copy): the
-    ``[P*b, S, dp]`` stacked table, ``Q*P`` virtual queries (query-major)
-    and the block ids the stacked routing gives them at ``probes``."""
+    """Stage 1's operands as a stacked search makes them (the int8 copy
+    with its scales, or the bf16 one): the ``[P*b, S, dp]`` stacked table,
+    ``Q*P`` virtual queries (query-major) and the block ids the stacked
+    routing gives them at ``probes``."""
     L, b, S = sh.blocks.shape[:3]
     q_sq = (q * q).sum(1)
     bids = sh._route(q, q_sq, None, probes)
     qv = _pad_cols(q.repeat_interleave(L, 0), sh.blocks_score.shape[3])
-    q8, q_scl = _quantize_rows(qv)
     args = (sh.blocks_score.view(L * b, S, -1), sh.blocks_sq.view(L * b, S),
             sh.block_gids.view(L * b, S), qv, q_sq.repeat_interleave(L, 0),
             bids, sh.parent.cfg.metric)
+    if sh.score_scales is None:
+        return args, {}
+    q8, q_scl = _quantize_rows(qv)
     return args, dict(q8=q8, q_scale=q_scl,
                       score_scale=sh.score_scales.view(-1))
 
@@ -2612,6 +2652,332 @@ def stacked_modes(pidx, gidx, queries: np.ndarray, qdev, card: str) -> dict:
     print(f"graph partitions through ShardedHnswSearcher ({json.dumps(kw)}): "
           f"ids equal the host loop's but for the order of equal distances "
           f"in {out['graph_tie_rows']} rows [{card}]", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# config E: one card's share of LAION-100M (scripts/config_e_12m5.py)
+# ---------------------------------------------------------------------------
+
+#: 100M x 512 bf16 cosine (BASELINE.json config E) over four cards is 25M
+#: rows a card, served here as eight hash partitions of the reference's own
+#: shape: 3.125M rows, S 128, slack 1.10, 26,856 blocks each
+E_PARTS, E_SHARD, E_DIM = 8, 3_125_000, 512
+E_N = E_PARTS * E_SHARD
+E_BLOCK, E_SLACK, E_RERANK = 128, 1.10, 128
+E_CENTRES, E_NQ, E_CHUNK = 8192, 512, 256
+E_SLAB = 312_500            # rows made at a time (the reference's slab)
+E_LOAD_CHUNK = 1 << 27      # from_saved's slab, bytes as f32 (its default)
+#: probes a partition: the reference's sweep (its probes_for_ef(16/32/64)
+#: with its loader's default slack, 1.05; the port's loader reads the
+#: saved 1.10 and maps those efs one probe higher), doubled up to
+#: E_PROBES_MAX while no point reaches TARGET_RECALL
+E_PROBES, E_PROBES_MAX = (8, 17, 34), 136
+#: benchmarks/config_e_12m5.json: the reference's recall@10 over its own
+#: 12.5M rows of this recipe (a TPU run; other draws, so a comparison)
+E_REFERENCE_RECALL = {8: 0.9451, 17: 0.9537, 34: 0.9596}
+#: returned cosine distances against 1 - q.x from the stored bf16 rows: both
+#: are f32 sums over the same rows and unit query, so they differ by f32
+#: rounding (d * eps, twice for the query's renormalisation), far inside
+#: the bf16 rounding of a row (2^-8)
+E_DIST_TOL = 2 * E_DIM * float(np.finfo(np.float32).eps)
+#: stage 1's operation classes in a profiled chunk (device_breakdown); the
+#: rest as the flat scans' classes (the route GEMM, its top-k, copies such
+#: as the centroids' f32 upcast)
+E_CLASSES = {"stage1": ("group_kernel", "grouped_kernel", "merge_kernel",
+                        "stage_kernel", "select_kernel"), **SCAN_CLASSES}
+
+
+def e_rows(g: torch.Generator, centres: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` rows of the reference's recipe (scripts/config_e_12m5.py:62-72)
+    made on the card from ``g``, ``E_SLAB`` at a time: ``4 * centre[a] +
+    N(0, 1)`` with ``a`` uniform, unit-normalised, cast to bf16."""
+    dev = centres.device
+    out = torch.empty((n, centres.shape[1]), dtype=torch.bfloat16,
+                      device=dev)
+    for s in range(0, n, E_SLAB):
+        m = min(E_SLAB, n - s)
+        a = torch.randint(0, len(centres), (m,), generator=g, device=dev)
+        x = torch.randn((m, centres.shape[1]), generator=g, device=dev)
+        x.add_(centres[a], alpha=4.0)
+        out[s:s + m] = x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    return out
+
+
+def e_part_oracle(idx, q: torch.Tensor):
+    """The reference's oracle (scripts/config_e_12m5.py:120-161) over one
+    resident part: ``FlatIndex(IP).search(exact=True)`` over the rows read
+    back from the index (the f32 upcast of its bf16 blocks, with their
+    ids) for unit queries. Returns (distances, local ids) ``[Q, 10]``."""
+    flat_ids = idx.block_ids.reshape(-1)
+    live = flat_ids >= 0
+    oracle = FlatIndex(idx.blocks.reshape(-1, idx.cfg.dim)[live], Metric.IP,
+                       dtype=torch.float32, device=idx.device)
+    d, pos = oracle.search_device(q, k=10, exact=True)
+    return d, flat_ids[live][pos].long()
+
+
+def e_build_parts(path: str, centres, q, card: str) -> tuple:
+    """Build, grade, save and free the parts one at a time, as the
+    reference does (scripts/config_e_12m5.py:100-196): each part from its
+    own generator on the card, its exact top-10 while it is resident, its
+    directory and global ids; then the merged oracle (the keyed top-10 of
+    the parts' 80 candidates, ties to the lower global id),
+    ``partitioned.json`` and ``router.npz``. Returns (oracle ids, one
+    record a part)."""
+    cfg = HnswConfig(dim=E_DIM, metric=Metric.COSINE, m=16,
+                     ef_construction=64, dtype="bfloat16", seed=0)
+    g = torch.Generator(device=q.device)
+    gt_d, gt_i, parts = [], [], []
+    for p in range(E_PARTS):
+        rec = {"part": p}
+        t0 = time.perf_counter()
+        corpus = e_rows(g.manual_seed(1 + p * 1000), centres, E_SHARD)
+        torch.cuda.synchronize()
+        rec["gen_s"] = time.perf_counter() - t0
+        idx = BlockHnswIndex(cfg, block_size=E_BLOCK, block_slack=E_SLACK,
+                             device=q.device)
+        idx.score_dtype = "bf16"
+        t0 = time.perf_counter()
+        idx.build(corpus)
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        del corpus
+        assert idx.blocks_score is idx.blocks, "bf16 scoring must alias"
+        rec["n_blocks"], rec["build_stats"] = idx.n_blocks, idx.build_stats
+        t0 = time.perf_counter()
+        d, ids = e_part_oracle(idx, q)
+        torch.cuda.synchronize()
+        rec["oracle_s"] = time.perf_counter() - t0
+        gt_d.append(d)
+        gt_i.append(ids + p * E_SHARD)
+        t0 = time.perf_counter()
+        part = os.path.join(path, f"part{p}")
+        idx.save(part)
+        np.save(os.path.join(part, "global_ids.npy"),
+                np.arange(idx.n_total, dtype=np.int32) + p * E_SHARD)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["peak_GB"] = peak_gb()
+        print(f"config E part {p}: {E_SHARD} x {E_DIM} bf16 made in "
+              f"{rec['gen_s']:.3f} s, built in {rec['build_s']:.3f} s "
+              f"({rec['n_blocks']} blocks; build_stats "
+              f"{json.dumps(rec['build_stats'])}), oracle "
+              f"{rec['oracle_s']:.3f} s, saved in {rec['save_s']:.3f} s; "
+              f"peak {rec['peak_GB']:.2f} GB [{card}]", flush=True)
+        parts.append(rec)
+        del idx, d, ids
+        torch.cuda.empty_cache()
+    gd, gi = torch.cat(gt_d, 1), torch.cat(gt_i, 1)
+    order = torch.argsort(gi, dim=1)  # the keyed top-k: ties to the lower id
+    gd, gi = gd.gather(1, order), gi.gather(1, order)
+    gt = gi.gather(1, T.topk_smallest_by_index(gd, 10)[1]).cpu().numpy()
+    with open(os.path.join(path, "partitioned.json"), "w") as f:
+        json.dump({"p": E_PARTS, "router": "hash", "route_k": 0, "n": E_N,
+                   "engine": "block", "block_size": E_BLOCK}, f)
+    np.savez(os.path.join(path, "router.npz"), centroids=np.zeros(0),
+             part_of=np.zeros(0, np.int32), local_of=np.zeros(0, np.int32))
+    return gt, parts
+
+
+def e_disk_need() -> int:
+    """Bytes the saved parts take: each part's raw bf16 blocks, its block
+    ids and slot map, and its global ids."""
+    B = math.ceil(E_SHARD * E_SLACK / E_BLOCK)
+    return E_PARTS * (B * E_BLOCK * (E_DIM * 2 + 4) + E_SHARD * (8 + 4))
+
+
+def e_load(path: str, card: str) -> tuple:
+    """``ShardedBlockSearcher.from_saved`` of the saved parts with its
+    bounded-memory check: the peak above what was allocated before the
+    load is at most the serving bytes plus two slabs and 16 MB. Returns
+    (searcher, numbers)."""
+    out = {}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sh = ShardedBlockSearcher.from_saved(path, chunk_bytes=E_LOAD_CHUNK)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    out["load_peak_above_GB"] = (torch.cuda.max_memory_allocated()
+                                 - before) / 1e9
+    assert sh.blocks_score is sh.blocks, "bf16 scoring must alias"
+    out["stats"] = sh.stats()
+    out["stacked_bytes"] = sh.blocks.numel() * sh.blocks.element_size()
+    assert out["stacked_bytes"] > 2 ** 32, out
+    serving = out["stats"]["memory_total_bytes"]
+    bound = serving + 2 * E_LOAD_CHUNK + (16 << 20)
+    out["load_bound_GB"] = bound / 1e9
+    assert out["load_peak_above_GB"] * 1e9 <= bound, out
+    assert out["max_memory_allocated_GB"] < 80, out
+    files = sum(os.path.getsize(os.path.join(dp, f))
+                for dp, _, fs in os.walk(path) for f in fs)
+    out["files_GB"] = files / 1e9
+    out["read_GBps"] = out["files_GB"] / out["load_s"]
+    print(f"config E from_saved: {E_PARTS} parts, {out['files_GB']:.3f} GB "
+          f"of files in {out['load_s']:.3f} s ({out['read_GBps']:.3f} GB/s); "
+          f"stacked blocks {out['stacked_bytes']} bytes (> 2^32), "
+          f"blocks_score is blocks; peak {out['load_peak_above_GB']:.3f} GB "
+          f"above the {before / 1e9:.3f} GB before it (bound: serving "
+          f"{serving / 1e9:.3f} GB + 2 slabs of {E_LOAD_CHUNK / 1e9:.3f} GB "
+          f"+ 16 MB), max_memory_allocated "
+          f"{out['max_memory_allocated_GB']:.3f} GB; stats "
+          f"{json.dumps(out['stats'])} [{card}]", flush=True)
+    return sh, out
+
+
+def e_check_results(sh, queries: np.ndarray, d: np.ndarray,
+                    ids: np.ndarray) -> float:
+    """Ids distinct in each row and in [0, E_N); distances equal to 1 - q.x
+    from the stored rows within E_DIST_TOL. Returns the largest gap."""
+    assert ((ids >= 0) & (ids < E_N)).all(), "ids outside [0, 25M)"
+    srt = np.sort(ids, axis=1)
+    assert (srt[:, 1:] != srt[:, :-1]).all(), "an id repeats in a row"
+    dev = sh.device
+    flat = sh.block_gids.view(-1)
+    live = torch.nonzero(flat >= 0)[:, 0]
+    slot = torch.full((E_N,), -1, dtype=torch.int64, device=dev)
+    slot[flat[live].long()] = live
+    x = sh.blocks.view(-1, E_DIM)[slot[torch.from_numpy(ids).to(dev)]]
+    q = torch.from_numpy(queries).to(dev)
+    want = 1.0 - (x.float() @ q[:, :, None])[..., 0]
+    gap = float((torch.from_numpy(d).to(dev) - want).abs().max())
+    assert gap <= E_DIST_TOL, (gap, E_DIST_TOL)
+    return gap
+
+
+def e_sweep(sh, queries: np.ndarray, gt: np.ndarray, card: str) -> dict:
+    """Recall@10, QPS (measure_qps over the queries in E_CHUNK-query
+    chunks) and the checked results at the reference's probe counts,
+    doubling past them up to E_PROBES_MAX while none reaches
+    TARGET_RECALL; exactly one expand_topr launch a chunk."""
+    out = {"probes_for_ef": {ef: sh.probes_for_ef(ef) for ef in (16, 32, 64)},
+           "curve": []}
+    print(f"config E probes_for_ef(16/32/64): "
+          f"{list(out['probes_for_ef'].values())}, beside the reference's "
+          f"probes {list(E_PROBES)} [{card}]", flush=True)
+    probes = list(E_PROBES)
+    while probes:
+        p = probes.pop(0)
+        st = {}
+        before = X.TOPR_LAUNCHES
+        qps, ids = measure_qps(sh, queries, 10, 0, pipeline=E_NQ // E_CHUNK,
+                               stats_out=st, probes=p)
+        passes = 2 + st["windows"] * st["window_passes"]
+        launches = X.TOPR_LAUNCHES - before
+        assert launches == passes * (E_NQ // E_CHUNK), (launches, passes)
+        d, got = zip(*(sh.search(queries[s:s + E_CHUNK], k=10, probes=p)
+                       for s in range(0, E_NQ, E_CHUNK)))
+        d, got = np.concatenate(d), np.concatenate(got)
+        assert np.array_equal(got, ids), "measured ids differ from search's"
+        row = {"probes": p, "recall": recall_at_k(ids, gt, 10), "qps": qps,
+               "qps_stats": st, "topr_launches_per_chunk": launches // (
+                   passes * (E_NQ // E_CHUNK)),
+               "max_dist_gap": e_check_results(sh, queries, d, ids),
+               "reference_recall": E_REFERENCE_RECALL.get(p)}
+        out["curve"].append(row)
+        print(f"config E probes {p} a partition: recall@10 "
+              f"{row['recall']:.4f} (reference {row['reference_recall']}), "
+              f"QPS {qps:.1f} ({E_CHUNK}-query chunks, cv {st['qps_cv']}, "
+              f"min {st['qps_min']}, max {st['qps_max']}); expand_topr "
+              f"launches a chunk {row['topr_launches_per_chunk']}; ids "
+              f"distinct and in range, distances within "
+              f"{row['max_dist_gap']:.3g} of 1 - q.x [{card}]", flush=True)
+        if (not probes and 2 * p <= E_PROBES_MAX
+                and max(r["recall"] for r in out["curve"]) < TARGET_RECALL):
+            probes.append(2 * p)
+    ok = [r for r in out["curve"] if r["recall"] >= TARGET_RECALL]
+    assert ok, f"config E: no probe count reached {TARGET_RECALL}"
+    out["chosen"] = ok[0]["probes"]
+    return out
+
+
+def e_kernel_checks(sh, qchunk, chosen: int, card: str) -> tuple:
+    """expand_topr in bf16 at the stacked shape (E_CHUNK queries, so
+    E_CHUNK * E_PARTS virtual queries, r = E_RERANK) against its plain
+    version within RTOL: at the routed bids of p = 17 and of p = 8 (both
+    routes), and at p = 17 bids drawn from the top quarter of the stacked
+    table (every read past 2^32 bytes); each then timed (stage1_timing,
+    both routes in turns where both apply). Not counted."""
+    topr, timings = [], []
+    for p, past in ((17, False), (17, True), (8, False)):
+        args, kw = stacked_args(sh, qchunk, p)
+        nb = args[0].shape[0]
+        if past:
+            first = 3 * nb // 4
+            assert first * args[0][0].numel() * args[0].element_size() \
+                > 2 ** 32
+            bids = first + torch.rand((args[5].shape[0], nb - first),
+                                      device=qchunk.device).argsort(1)[:, :p]
+            args = (*args[:5], bids, args[6])
+        what = (f"config E stacked, {args[5].shape[0]} virtual queries, "
+                f"B={nb}, p={p}, "
+                + ("bids in the top quarter (past 2^32 bytes)" if past
+                   else "routed bids"))
+        cscale = (args[1].max() + args[4].max()).item()
+        topr.extend(topr_variants(args, kw, "bfloat16", card, cscale, what,
+                                  rs=(E_RERANK,), nqs=(args[5].shape[0],)))
+        timings.append(stage1_timing(args, kw, E_RERANK, card, what))
+        del args, kw
+    return topr, timings
+
+
+def config_e_phase(card: str, dev: torch.device) -> dict:
+    """Config E's per-card shard at full width: 25M x 512 bf16 cosine, one
+    card's quarter of LAION-100M, as eight hash partitions of the
+    reference's 3.125M-row shape, built, graded against the exact oracle,
+    saved and freed one at a time into a temporary directory (which must
+    hold e_disk_need() bytes, or the phase raises), then loaded by
+    ``ShardedBlockSearcher.from_saved`` with the bf16 scoring copy aliasing
+    the blocks, ``rerank_width`` 128. With the launch counters at 0: the
+    sweep (e_sweep) and a profiled chunk at its operating point. Then, not
+    counted, expand_topr at the stacked shape (e_kernel_checks)."""
+    import shutil
+
+    out = {}
+    g = torch.Generator(device=dev)
+    centres = torch.randn((E_CENTRES, E_DIM), generator=g.manual_seed(0),
+                          device=dev)
+    q = e_rows(g.manual_seed(1000), centres, E_NQ).float()
+    q += 0.05 * torch.randn(q.shape, generator=g.manual_seed(999),
+                            device=dev)
+    q /= q.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    queries = q.cpu().numpy()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_config_e_") as tmp:
+        usage = shutil.disk_usage(tmp)
+        out["disk"] = {"total_GB": usage.total / 1e9,
+                       "free_GB": usage.free / 1e9,
+                       "need_GB": e_disk_need() / 1e9}
+        print(f"config E disk at {tmp}: {json.dumps(out['disk'])} "
+              f"[{card}]", flush=True)
+        if usage.free < e_disk_need():
+            raise RuntimeError(f"config E needs {e_disk_need()} bytes of "
+                               f"disk, {usage.free} are free")
+        t0 = time.perf_counter()
+        gt, out["parts"] = e_build_parts(tmp, centres, q, card)
+        out["build_grade_save_s"] = time.perf_counter() - t0
+        out["build_peak_GB"] = peak_gb()
+        del centres, q
+        torch.cuda.empty_cache()
+        sh, out["load"] = e_load(tmp, card)
+    sh.rerank_width = E_RERANK
+    reset_expand_counts()
+    out["sweep"] = e_sweep(sh, queries, gt, card)
+    chosen = out["sweep"]["chosen"]
+    qchunk = torch.from_numpy(queries[:E_CHUNK]).to(dev)
+    out["breakdown"] = device_breakdown(
+        lambda: sh.search_device(qchunk, k=10, probes=chosen), card,
+        f"config E stacked, one {E_CHUNK}-query search_device chunk at "
+        f"probes {chosen} (8 partitions in one batch and the merge)",
+        classes=E_CLASSES)
+    out["launches"] = expand_launches()
+    out["topr"], out["timings"] = e_kernel_checks(sh, qchunk, chosen, card)
+    reset_expand_counts()
+    out["serve_peak_GB"] = peak_gb()
+    del sh, qchunk
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3145,10 +3511,30 @@ class HostData:
 
 
 def main() -> None:
+    if sys.argv[1:] not in ([], ["config_e"]):
+        raise SystemExit("usage: python3 chip_smoke.py [config_e]")
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script needs a GPU")
+    if sys.argv[1:] == ["config_e"]:
+        run_config_e()
+        return
     with HostData() as host:
         run(host)
+
+
+def run_config_e() -> None:
+    """Config E's phase alone, after the kernel builds, in a fresh process:
+    its profiled chunk keeps every kernel there (late in the whole run the
+    trace loses some; ``device_breakdown``'s ``complete``). Prints the
+    phase's numbers as one JSON line, then the card line."""
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    with phase("kernel builds"):
+        build_phase()
+    with phase("config E"):
+        out = config_e_phase(card, torch.device("cuda"))
+    print(json.dumps({"config_e": out, "phase_s": PHASE_S}), flush=True)
+    print(card, flush=True)
 
 
 def run(host: HostData) -> None:
@@ -3270,6 +3656,16 @@ def run(host: HostData) -> None:
         breakdowns.append(stacked.pop("breakdown"))
         torch.cuda.empty_cache()
 
+    # config E's per-card shard: its launch counters are kept by the phase
+    with phase("config E"):
+        cfg_e = config_e_phase(card, dev)
+        e_launches = cfg_e.pop("launches")
+        assert e_launches["expand_topr"] > 0, \
+            "config E never launched expand_topr"
+        topr.extend(cfg_e.pop("topr"))
+        timings.extend(cfg_e.pop("timings"))
+        breakdowns.append(cfg_e.pop("breakdown"))
+
     # the sparse cell: its launch counters are kept by the phase
     with phase("sparse"):
         sparse = sparse_phase(card, dev, host.take("sparse"))
@@ -3298,7 +3694,8 @@ def run(host: HostData) -> None:
                       "profile_ranges": ranges, "data_files": files,
                       "cli": cli, "bench_s": bench["s"], "planner": plan,
                       "graph": graph, "ivf": ivf, "partition_modes": modes,
-                      "config_d": cfg_d, "mesh_build": mesh,
+                      "config_d": cfg_d, "config_e": cfg_e,
+                      "mesh_build": mesh,
                       "sparse": sparse["numbers"],
                       "binary": binary["numbers"],
                       "collectives": merges,
@@ -3320,6 +3717,7 @@ def run(host: HostData) -> None:
                       "partitioned_centroid_1Mx128": modes_launches[name],
                       "config_d_10Mx96": d_launches[name],
                       "config_d_stacked_10Mx96": d_stacked_launches[name],
+                      "config_e_25Mx512": e_launches[name],
                       "mesh_build_8x25k_and_1M": mesh_launches[name],
                       "sparse_1Mx30522": sp_launches[name],
                       "binary_1Mx1536": launches_bin[name]}
@@ -3372,7 +3770,7 @@ def run(host: HostData) -> None:
                     "span of one call behind a spin kernel",
         "variants": [v for v in topr if route in v["routes"]],
         "at_every_stage1_shape": [
-            {k: t[k] for k in ("of", "Q", "p", "d", "r", "route",
+            {k: t[k] for k in ("of", "dtype", "Q", "p", "d", "r", "route",
                                "grouped_ms", "ring_ms", "fused_bound_ms",
                                "composite_ms", "chosen_is_faster")}
             for t in timings],

@@ -43,3 +43,26 @@ def test_empty_cluster_refill_matches_reference():
                      assign_full=False)
     assert a.numel() == 0
     np.testing.assert_allclose(c.numpy(), jc, atol=1e-3)
+
+
+def test_assignment_in_row_steps(monkeypatch):
+    """The assignment holds at most ASSIGN_ELEMS scores a step: config E's
+    859,392 sampled rows x 26,856 centroids would be a 92 GB matrix,
+    more than the card holds. In steps of 7 rows (the last one short) it
+    equals one step on integer rows and centroids, where every distance
+    is exact and ties go to the first centroid; k-means in such steps
+    still matches the reference."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.integers(-8, 8, size=(600, 16)).astype(
+        np.float32))
+    cents = x[rng.choice(600, 20, replace=False)]
+    x_sq = (x * x).sum(1)
+    whole = KM._assign(x, x_sq, cents)
+    monkeypatch.setattr(KM, "ASSIGN_ELEMS", 7 * 20)
+    assert torch.equal(KM._assign(x, x_sq, cents), whole)
+    base, _ = synthetic_clustered(4096, 32, n_queries=1, seed=7)
+    jc, ja = JKM.kmeans(base, 32, iters=10, seed=3, sample=None)
+    c, a = KM.kmeans(torch.from_numpy(base), 32, iters=10, seed=3,
+                     sample=None)
+    np.testing.assert_allclose(c.numpy(), jc, atol=1e-3)
+    assert (a.numpy() == ja).mean() >= 0.99

@@ -364,3 +364,91 @@ def test_stacked_stage1_equals_plain_on_the_card():
         d, pos = X.expand_topr(*args, 40, **kw)
         wd, wpos = X.expand_topr_reference(*args, 40, **kw)
         assert torch.equal(T.score_keys(d, pos), T.score_keys(wd, wpos))
+
+
+@pytest.mark.cuda
+def test_stacked_bf16_stage1_past_4gib_equals_plain_on_the_card():
+    """Config E's stacked stage 1 (``scripts/config_e_12m5.py``: bf16 rows
+    of d = 512 aliased as the scoring copy, S = 128, r = 128) over a table
+    of more than 4 GiB, every probed block in its last quarter, so that
+    every read lies past 2^32 bytes: on each route the shape allows, the
+    returned scores equal the plain scores at the returned positions
+    within RTOL (1e-3 of the cancellation scale: bf16 operands, f32 sums
+    in another order), the r-th scores agree within it, and every position
+    the plain version scores below its r-th score minus it is returned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_hnsw_torch.ops import expand as X
+
+    dev, rtol = torch.device("cuda"), 1e-3
+    B, S, d, Q, r = 45_056, 128, 512, 256, 128
+    g = torch.Generator(device=dev).manual_seed(5)
+    blocks = torch.empty((B, S, d), dtype=torch.bfloat16, device=dev)
+    blocks_sq = torch.empty((B, S), dtype=torch.float32, device=dev)
+    for s in range(0, B, 4096):
+        x = torch.randn((min(4096, B - s), S, d), generator=g, device=dev)
+        x /= x.norm(dim=-1, keepdim=True)
+        blocks[s:s + 4096] = x
+        blocks_sq[s:s + 4096] = (blocks[s:s + 4096].float() ** 2).sum(-1)
+        del x
+    assert blocks.numel() * blocks.element_size() > 4 << 30
+    block_ids = torch.arange(B * S, dtype=torch.int32, device=dev).view(B, S)
+    dead = torch.rand((B, S), generator=g, device=dev) < 0.03
+    block_ids = torch.where(dead, -1, block_ids).contiguous()
+    q = torch.randn((Q, d), generator=g, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    first = 3 * B // 4
+    assert first * S * d * blocks.element_size() > 1 << 32
+    for p in (8, 17):
+        bids = first + torch.rand((Q, B - first), generator=g,
+                                  device=dev).argsort(1)[:, :p]
+        args = (blocks, blocks_sq, block_ids, q, (q * q).sum(1), bids,
+                Metric.IP)
+        plain = X.expand_score_reference(*args).reshape(Q, -1)
+        cscale = (blocks_sq.max() + args[4].max()).item()
+        wd, _ = X.topr_of_scores(plain, r)
+        tol = rtol * (cscale + wd[:, -1].abs())
+        must = plain < (wd[:, -1] - tol)[:, None]
+        routes = X.topr_routes(p, r, S)
+        assert ("grouped" in routes) == (p == 8)
+        for route in routes:
+            dd, pos = X.expand_topr(*args, r, route=route)
+            torch.cuda.synchronize()
+            at = plain.gather(1, pos)
+            fin = torch.isfinite(at)
+            assert torch.equal(fin, torch.isfinite(dd)), route
+            assert ((dd - at).abs()[fin]
+                    <= rtol * (cscale + at.abs()[fin])).all(), route
+            assert ((dd[:, -1] - wd[:, -1]).abs() <= tol).all(), route
+            got = torch.zeros_like(must).scatter_(1, pos, True)
+            assert (got | ~must).all(), route
+
+
+@pytest.mark.cuda
+def test_from_saved_peak_is_serving_plus_two_slabs_on_the_card(tmp_path):
+    """from_saved's peak device memory above what was allocated before it
+    is the stacked serving bytes plus two slabs (the slab in f32 and one
+    temporary) and at most 1 MB, here with 512-d bf16 rows whose f32
+    centroid table alone (2.3 MB) would pass that bound; the int8-saved
+    directory is served with score_dtype="bf16", which aliases the rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(7)
+    base = rng.standard_normal((4 * 4096, 512)).astype(np.float32)
+    cfg = HnswConfig(dim=512, metric=Metric.COSINE, dtype="bfloat16", seed=0)
+    PartitionedHnswIndex(cfg, 4, router="hash", engine="block",
+                         block_size=16, device="cuda").build(base).save(
+                             str(tmp_path))
+    chunk_bytes = 4 * 16 * 512 * 4  # four blocks a slab
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sh = ShardedBlockSearcher.from_saved(str(tmp_path),
+                                         chunk_bytes=chunk_bytes,
+                                         score_dtype="bf16")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert sh.blocks_score is sh.blocks
+    serving = sh.stats()["memory_total_bytes"]
+    assert sh.centroids.numel() * 4 > 2 * chunk_bytes + (1 << 20)
+    assert peak <= serving + 2 * chunk_bytes + (1 << 20), (peak, serving)

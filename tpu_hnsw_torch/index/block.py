@@ -364,6 +364,13 @@ def _make_score_copy(blocks: torch.Tensor, score_dtype: str = "int8"):
     return _pad_cols(blocks.to(torch.bfloat16), dp), None
 
 
+def _check_score_dtype(score_dtype: str | None) -> str | None:
+    """A loader's ``score_dtype`` keyword: None or a scoring copy's name."""
+    if score_dtype not in (None, "int8", "bf16"):
+        raise ValueError("score_dtype must be int8|bf16")
+    return score_dtype
+
+
 def _chunk(elems_per_item: int) -> int:
     """Items per step so a step's f32 temporaries hold ~_CHUNK_ELEMS."""
     return max(1, _CHUNK_ELEMS // max(elems_per_item, 1))
@@ -1147,12 +1154,17 @@ class BlockHnswIndex:
                      tail_n=self.tail_n)
 
     @classmethod
-    def load(cls, path: str, device=None) -> "BlockHnswIndex":
+    def load(cls, path: str, device=None,
+             score_dtype: str | None = None) -> "BlockHnswIndex":
         """Read a directory written by :meth:`save` or by ``tpu_hnsw``
         (block.py:1661-1706): norms, scoring copy and centroids are derived
         again from the blocks, and a saved ``centroid_graph/`` is loaded.
         ``block_slack`` defaults to 1.05 where the directory does not hold
-        it."""
+        it. ``score_dtype`` ("int8" | "bf16") names the scoring copy to
+        make; None takes the directory's, else "int8". The reference's
+        directories hold none: it picks the copy from
+        ``TPU_HNSW_SCORE_DTYPE`` when it loads (block.py:546-547)."""
+        score_dtype = _check_score_dtype(score_dtype)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         c = dict(meta["config"])
@@ -1160,7 +1172,7 @@ class BlockHnswIndex:
         idx = cls(HnswConfig(**c), block_size=meta["block_size"],
                   routing=meta["routing"],
                   block_slack=meta.get("block_slack", 1.05), device=device)
-        idx.score_dtype = meta.get("score_dtype", "int8")
+        idx.score_dtype = score_dtype or meta.get("score_dtype", "int8")
         z = np.load(os.path.join(path, "blocks.npz"))
         bb = meta.get("blocks_bin")
         if bb is not None:

@@ -14,11 +14,23 @@ import torch
 from tpu_hnsw_torch.ops import distance as D
 
 
+#: scores a step of the assignment holds (4 GB in f32): the reference's
+#: XLA fuses the argmin into its GEMM and never holds ``[N, k]``, which at
+#: config E's shape (859,392 sampled rows, 26,856 centroids) is 92 GB
+ASSIGN_ELEMS = 1 << 30
+
+
 def _assign(x, x_sq, centroids):
-    """Nearest centroid per row (L2)."""
+    """Nearest centroid per row (L2), in steps of rows whose ``[step, k]``
+    scores hold at most ``ASSIGN_ELEMS``."""
     c_sq = D.squared_norms(centroids)
-    scores = x_sq[:, None] + c_sq[None, :] - 2.0 * (x @ centroids.T)
-    return scores.argmin(dim=1)
+    step = max(1, ASSIGN_ELEMS // max(centroids.shape[0], 1))
+    out = []
+    for s in range(0, max(x.shape[0], 1), step):
+        scores = (x_sq[s:s + step, None] + c_sq[None, :]
+                  - 2.0 * (x[s:s + step] @ centroids.T))
+        out.append(scores.argmin(dim=1))
+    return torch.cat(out)
 
 
 def _update(x, assign, k: int):

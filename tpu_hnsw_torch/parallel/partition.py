@@ -43,8 +43,8 @@ import torch.distributed as dist
 from tpu_hnsw_torch.config import HnswConfig, Metric, validate_ef_search
 from tpu_hnsw_torch.index import graph as G
 from tpu_hnsw_torch.index.block import (BlockHnswIndex, _centroid_scores,
-                                        _expand_blocks, _expand_blocks_2stage,
-                                        _score_width)
+                                        _check_score_dtype, _expand_blocks,
+                                        _expand_blocks_2stage, _score_width)
 from tpu_hnsw_torch.index.hnsw import HnswIndex
 from tpu_hnsw_torch.index.search import _descend_body, _search_layer_body
 from tpu_hnsw_torch.ops import distance as D
@@ -550,14 +550,25 @@ class PartitionedHnswIndex:
         )
 
     @classmethod
-    def load(cls, path: str, device=None) -> "PartitionedHnswIndex":
+    def load(cls, path: str, device=None,
+             score_dtype: str | None = None) -> "PartitionedHnswIndex":
+        """Read a directory written by :meth:`save` (either package's).
+        ``score_dtype`` is passed to each block-engine part's
+        :meth:`BlockHnswIndex.load`: None keeps the directory's scoring
+        copy; a graph-engine index, which has none, refuses it."""
         with open(os.path.join(path, "partitioned.json")) as f:
             meta = json.load(f)
         engine = meta.get("engine", "graph")
-        sub_cls = BlockHnswIndex if engine == "block" else HnswIndex
+        if engine == "block":
+            sub_cls, kw = BlockHnswIndex, {"score_dtype": score_dtype}
+        elif score_dtype is not None:
+            raise ValueError("score_dtype applies to block-engine partitions")
+        else:
+            sub_cls, kw = HnswIndex, {}
         parts = []
         for p in range(meta["p"]):
-            sub = sub_cls.load(os.path.join(path, f"part{p}"), device=device)
+            sub = sub_cls.load(os.path.join(path, f"part{p}"), device=device,
+                               **kw)
             sub._global_ids = np.load(
                 os.path.join(path, f"part{p}", "global_ids.npy"))
             parts.append(sub)
@@ -822,7 +833,8 @@ class ShardedBlockSearcher:
     # --------------------------------------------------------------- loading
     @classmethod
     def from_saved(cls, path: str, mesh=None, chunk_bytes: int = 1 << 27,
-                   device=None) -> "ShardedBlockSearcher":
+                   device=None,
+                   score_dtype: str | None = None) -> "ShardedBlockSearcher":
         """The stacked state straight from a saved directory (either
         package's layout; partition.py:919-1213), with bounded device
         memory: the stacked tensors are allocated once, and each part's
@@ -832,11 +844,16 @@ class ShardedBlockSearcher:
         derived on the device in the same pass. Peak device memory is the
         serving bytes plus two slabs (the slab in f32 and one temporary).
         The B axis is padded to whole slabs, so every slab has one shape.
+        ``score_dtype`` ("int8" | "bf16") names the scoring copy; None takes
+        the first part's ``meta.json``, else "int8" (the reference's
+        directories hold none: it reads ``TPU_HNSW_SCORE_DTYPE`` when it
+        loads, partition.py:962). A bf16 copy of bf16 rows aliases them.
 
         The searcher's parent is a skeleton of metadata (its partitions
         hold counts and id maps, no tensors) and is released from the start:
         serving, ``probes_for_ef`` and ``stats`` work, per-partition search
         and DML raise."""
+        score_dtype = _check_score_dtype(score_dtype)
         with open(os.path.join(path, "partitioned.json")) as f:
             meta = json.load(f)
         if meta.get("engine", "graph") != "block":
@@ -865,7 +882,7 @@ class ShardedBlockSearcher:
                                   device=parent.device)
             stub.n, stub.n_total = int(m["n"]), int(m["n_total"])
             stub.n_blocks = int(m["n_blocks"])
-            stub.score_dtype = m.get("score_dtype", "int8")
+            stub.score_dtype = score_dtype or m.get("score_dtype", "int8")
             gp = os.path.join(path, f"part{i}", "global_ids.npy")
             stub._global_ids = (np.load(gp) if os.path.exists(gp) else
                                 np.arange(stub.n_total, dtype=np.int32))
@@ -881,13 +898,11 @@ class ShardedBlockSearcher:
         b_pad = -(-b_max // slab) * slab
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         score = parent.parts[0].score_dtype
-        score_dtype = torch.int8 if score == "int8" else torch.bfloat16
-        dp = _score_width(d, score_dtype)
-        alias = score_dtype == torch.bfloat16 == dtype and dp == d
-        self._alloc(S, b_pad, dtype, None if alias else score_dtype, dp,
+        score_t = torch.int8 if score == "int8" else torch.bfloat16
+        dp = _score_width(d, score_t)
+        alias = score_t == torch.bfloat16 == dtype and dp == d
+        self._alloc(S, b_pad, dtype, None if alias else score_t, dp,
                     score == "int8")
-        cents = torch.zeros((self.local_p, b_pad, d), dtype=torch.float32,
-                            device=self.device)
         for lp in range(self.local_p):
             i = self.first + lp
             part = os.path.join(path, f"part{i}")
@@ -908,10 +923,7 @@ class ShardedBlockSearcher:
                     -1).astype(np.int32)).to(self.device)
             for s0 in range(0, B, slab):
                 self._install_slab(lp, s0, raw[s0:s0 + slab],
-                                   bids[s0:s0 + slab] >= 0, slab, cents)
-        self.centroids.copy_(cents)
-        self.centroids_sq.copy_((cents * cents).sum(-1))
-        del cents
+                                   bids[s0:s0 + slab] >= 0, slab)
         ref = parent.parts[0]
         self._finish([parent.parts[self.first + lp].n_blocks
                       for lp in range(self.local_p)], b_max, ref.two_stage,
@@ -919,12 +931,14 @@ class ShardedBlockSearcher:
         return self
 
     def _install_slab(self, lp: int, s0: int, raw: np.ndarray,
-                      live: np.ndarray, slab: int, cents) -> None:
+                      live: np.ndarray, slab: int) -> None:
         """One slab of saved blocks into partition ``lp`` from block ``s0``:
-        the rows (dead rows zero), their squared norms, the f32 centroids
-        and the scoring copy, as ``_set_blocks`` and ``_make_score_copy``
-        derive them. A short last slab is zero-padded to ``slab`` blocks.
-        Device memory: the slab in f32 and one slab-sized temporary."""
+        the rows (dead rows zero), their squared norms, the centroids (the
+        mean of the live rows in f32, stored in the rows' dtype, with the
+        f32 squared norm) and the scoring copy, as ``_set_blocks`` and
+        ``_make_score_copy`` derive them. A short last slab is zero-padded
+        to ``slab`` blocks. Device memory: the slab in f32 and one
+        slab-sized temporary."""
         nb = raw.shape[0]
         raw = np.array(raw)  # the slab read into host memory, writable
         if raw.dtype == np.uint16:  # bf16 saved as its bits
@@ -944,7 +958,9 @@ class ShardedBlockSearcher:
         self.blocks[lp, sl] = sf
         self.blocks_sq[lp, sl] = (sf * sf).sum(-1)
         counts = torch.clamp_min(alive.float().sum(1), 1.0)
-        cents[lp, sl] = sf.sum(1) / counts[:, None]
+        cents = sf.sum(1) / counts[:, None]
+        self.centroids[lp, sl] = cents
+        self.centroids_sq[lp, sl] = (cents * cents).sum(-1)
         d = sf.shape[2]
         if self.score_scales is not None:
             # quantised in place: the slab and one temporary at most
