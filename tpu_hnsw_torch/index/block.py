@@ -125,31 +125,40 @@ def _expand_blocks_2stage(blocks_score, blocks_sq, block_ids, flat_exact, q,
     in f32 from ``flat_exact [B*S, d]``, and the top-k is returned.
     ``allowed`` masks stage 1 in the kernel and stage 2 again: when fewer
     than ``rerank`` allowed rows exist, top-r still hands back disallowed
-    positions."""
-    p = bids.shape[1]
+    positions.
+
+    Stage 1 (the kernel) and the rerank (gather, exact scores, top-k) are
+    regions of their own; the query's padding and quantisation before them
+    and the id gather after them stay in the caller's: a traced range gets
+    its device extent from the kernels launched directly in it, so these
+    keep the caller's ``expand`` range around both regions' kernels."""
+    nq, p = bids.shape
     S, dp = blocks_score.shape[1], blocks_score.shape[2]
+    r = min(rerank, p * S)
     qp = _pad_cols(q, dp)  # zero columns change neither dots nor norms
     kw = {"allowed": allowed}
     if score_scale is not None:
         q8, q_scl = _quantize_rows(qp)
         kw.update(q8=q8, q_scale=q_scl, score_scale=score_scale)
-    _, sel = _stage1(blocks_score, blocks_sq, block_ids, qp, q_sq, bids,
-                     metric, min(rerank, p * S), **kw)
-    slots = _slots_of(bids, sel, S)
-    cand_ids = block_ids.reshape(-1)[slots]
-    v = flat_exact[slots].float()                     # [Q, r, d]
-    dots2 = (v @ q[:, :, None])[..., 0]
-    if metric is Metric.L2:
-        vsq = (v * v).sum(-1)
-        sc2 = torch.clamp_min(q_sq[:, None] + vsq - 2.0 * dots2, 0.0)
-    else:
-        sc2 = -dots2
-    dead = cand_ids < 0
-    if allowed is not None:
-        dead |= ~allowed.reshape(-1)[slots]
-    sc2 = torch.where(dead, torch.inf, sc2)
-    # lax.top_k's order (block.py:232): ties to the earlier candidate
-    vals, sel2 = T.topk_smallest_by_index(sc2, k)
+    with annotate("stage1", nq * p):
+        _, sel = _stage1(blocks_score, blocks_sq, block_ids, qp, q_sq, bids,
+                         metric, r, **kw)
+    with annotate("rerank", nq * r):
+        slots = _slots_of(bids, sel, S)
+        cand_ids = block_ids.reshape(-1)[slots]
+        v = flat_exact[slots].float()                     # [Q, r, d]
+        dots2 = (v @ q[:, :, None])[..., 0]
+        if metric is Metric.L2:
+            vsq = (v * v).sum(-1)
+            sc2 = torch.clamp_min(q_sq[:, None] + vsq - 2.0 * dots2, 0.0)
+        else:
+            sc2 = -dots2
+        dead = cand_ids < 0
+        if allowed is not None:
+            dead |= ~allowed.reshape(-1)[slots]
+        sc2 = torch.where(dead, torch.inf, sc2)
+        # lax.top_k's order (block.py:232): ties to the earlier candidate
+        vals, sel2 = T.topk_smallest_by_index(sc2, k)
     ids = torch.gather(cand_ids, 1, sel2)
     return vals, torch.where(torch.isfinite(vals), ids, -1)
 
@@ -206,10 +215,11 @@ def _serve_exact(blocks, blocks_score, blocks_sq, block_ids, centroids, c_sq,
     centroid routing -> block expansion (+ rerank). Raw scores out."""
     q = q.float()
     q_sq = D.squared_norms(q)
-    with annotate("route"):
+    nq = q.shape[0]
+    with annotate("route", nq):
         bids = _route_exact(centroids, c_sq, q, q_sq, p=probes,
                             metric=metric)
-    with annotate("expand"):
+    with annotate("expand", nq):
         if two_stage:
             return _expand_blocks_2stage(
                 blocks_score, blocks_sq, block_ids,
@@ -311,22 +321,24 @@ def _balanced_assign_device(xt, centroids, S: int,
             is_.append(i_)
         return torch.cat(ds), torch.cat(is_)
 
-    cand_d, cand_i = score_all(None)
-    _sync(xt.device)
+    with annotate("assign_topk", n):
+        cand_d, cand_i = score_all(None)
+        _sync(xt.device)
     t1 = time.perf_counter()
-    assign = torch.full((n,), -1, dtype=torch.int64, device=xt.device)
-    free = torch.full((B,), S, dtype=torch.int64, device=xt.device)
-    _assign_rounds_device(cand_i, cand_d, assign, free, B=B)
-    retried = int((assign < 0).sum())
-    left = retried
-    for _retry in range(3):  # three retry rounds leave ~no row unplaced
-        if left == 0:
-            break
-        rd, ri = score_all(free <= 0)
-        _assign_rounds_device(ri, rd, assign, free, B=B)
-        left = int((assign < 0).sum())
-    if left:
-        assign = _leftover_fill_device(assign, free, B=B)
+    with annotate("assign_rounds", n):
+        assign = torch.full((n,), -1, dtype=torch.int64, device=xt.device)
+        free = torch.full((B,), S, dtype=torch.int64, device=xt.device)
+        _assign_rounds_device(cand_i, cand_d, assign, free, B=B)
+        retried = int((assign < 0).sum())
+        left = retried
+        for _retry in range(3):  # three retry rounds leave ~no row unplaced
+            if left == 0:
+                break
+            rd, ri = score_all(free <= 0)
+            _assign_rounds_device(ri, rd, assign, free, B=B)
+            left = int((assign < 0).sum())
+        if left:
+            assign = _leftover_fill_device(assign, free, B=B)
     stats = {
         "assign_topk_s": round(t1 - t0, 3),
         "assign_greedy_s": round(time.perf_counter() - t1, 3),
@@ -594,8 +606,9 @@ class BlockHnswIndex:
         block_ids = self._pack(xt, kmeans_iters)
         _sync(self.device)
         t2 = time.perf_counter()
-        self._install_blocks(block_ids, xt)
-        _sync(self.device)
+        with annotate("install", n):
+            self._install_blocks(block_ids, xt)
+            _sync(self.device)
         t3 = time.perf_counter()
         self.build_stats = {
             "prep_s": round(t1 - t0, 3),
@@ -625,7 +638,9 @@ class BlockHnswIndex:
             sample=min(n, max(65536, 32 * B)), balance=True,
             assign_full=False)
         ta = time.perf_counter()
-        assign, assign_stats = _balanced_assign_device(xt, centroids, S, B)
+        with annotate("balanced_assign", n):
+            assign, assign_stats = _balanced_assign_device(xt, centroids, S,
+                                                           B)
         self._pack_stats = {
             "kmeans_s": round(ta - tk, 3),
             "balanced_assign_s": round(time.perf_counter() - ta, 3),
@@ -808,51 +823,54 @@ class BlockHnswIndex:
         on the device: disallowed rows score +inf in the kernel, like dead
         rows. Selective filters want wider probes; see
         :meth:`search_iterative` for automatic widening."""
-        validate_ef_search(max(ef_search, 1))
-        if self.n_blocks == 0 and not self.tail_n:
-            raise ValueError("index is empty")
-        if probes is None:
-            probes = self.probes_for_ef(max(ef_search, k))
-        probes = max(1, min(probes, max(self.n_blocks, 1)))
-        qt = self._queries(queries)
-        allowed_slots = allowed_tail = None
-        if filter_mask is not None:
-            allowed_slots, allowed_tail = self._filter_device(filter_mask)
-        metric = self.cfg.metric
-        if self.n_blocks == 0:  # every row arrived through the spill tail
-            sc, ids = self._tail_scores(qt, D.squared_norms(qt), k,
-                                        allowed_tail)
-            return D.score_to_distance(sc, metric), ids
-        if (probes >= self.n_blocks
-                and self.n_blocks > self.EXHAUSTIVE_SCAN_MIN_BLOCKS):
-            sc, ids = self._scan_all(qt, k, allowed_slots)
-        elif not self._use_graph_routing():
-            sc, ids = _serve_exact(
-                self.blocks, self.blocks_score, self.blocks_sq,
-                self.block_ids, self.centroids, self.centroids_sq, qt,
-                self.score_scale, allowed_slots, k=k, probes=probes,
-                rerank=max(self.rerank_width, k), metric=metric,
-                two_stage=self.two_stage)
-        else:
-            q_sq = D.squared_norms(qt)
-            bids = self._route(qt, probes, max(ef_search, probes))
-            if self.two_stage:
-                sc, ids = _expand_blocks_2stage(
-                    self.blocks_score, self.blocks_sq, self.block_ids,
-                    self.blocks.reshape(-1, self.cfg.dim), qt, q_sq, bids,
-                    k=k, rerank=max(self.rerank_width, k), metric=metric,
-                    score_scale=self.score_scale, allowed=allowed_slots)
-            else:
-                sc, ids = _expand_blocks(
-                    self.blocks, self.blocks_sq, self.block_ids, qt, q_sq,
-                    bids, k=k, metric=metric, allowed=allowed_slots)
-        if self.tail_n:
-            t_sc, t_ids = self._tail_scores(qt, D.squared_norms(qt), k,
+        with annotate("search") as span:
+            validate_ef_search(max(ef_search, 1))
+            if self.n_blocks == 0 and not self.tail_n:
+                raise ValueError("index is empty")
+            if probes is None:
+                probes = self.probes_for_ef(max(ef_search, k))
+            probes = max(1, min(probes, max(self.n_blocks, 1)))
+            with annotate("queries") as qspan:
+                qt = self._queries(queries)
+                span.work = qspan.work = qt.shape[0]
+            allowed_slots = allowed_tail = None
+            if filter_mask is not None:
+                allowed_slots, allowed_tail = self._filter_device(filter_mask)
+            metric = self.cfg.metric
+            if self.n_blocks == 0:  # every row arrived through the spill tail
+                sc, ids = self._tail_scores(qt, D.squared_norms(qt), k,
                                             allowed_tail)
-            # lax.top_k's order: ties to the block result over the tail
-            sc, sel = T.topk_smallest_by_index(torch.cat([sc, t_sc], 1), k)
-            ids = torch.gather(torch.cat([ids, t_ids], 1), 1, sel)
-        return D.score_to_distance(sc, metric), ids
+                return D.score_to_distance(sc, metric), ids
+            if (probes >= self.n_blocks
+                    and self.n_blocks > self.EXHAUSTIVE_SCAN_MIN_BLOCKS):
+                sc, ids = self._scan_all(qt, k, allowed_slots)
+            elif not self._use_graph_routing():
+                sc, ids = _serve_exact(
+                    self.blocks, self.blocks_score, self.blocks_sq,
+                    self.block_ids, self.centroids, self.centroids_sq, qt,
+                    self.score_scale, allowed_slots, k=k, probes=probes,
+                    rerank=max(self.rerank_width, k), metric=metric,
+                    two_stage=self.two_stage)
+            else:
+                q_sq = D.squared_norms(qt)
+                bids = self._route(qt, probes, max(ef_search, probes))
+                if self.two_stage:
+                    sc, ids = _expand_blocks_2stage(
+                        self.blocks_score, self.blocks_sq, self.block_ids,
+                        self.blocks.reshape(-1, self.cfg.dim), qt, q_sq, bids,
+                        k=k, rerank=max(self.rerank_width, k), metric=metric,
+                        score_scale=self.score_scale, allowed=allowed_slots)
+                else:
+                    sc, ids = _expand_blocks(
+                        self.blocks, self.blocks_sq, self.block_ids, qt, q_sq,
+                        bids, k=k, metric=metric, allowed=allowed_slots)
+            if self.tail_n:
+                t_sc, t_ids = self._tail_scores(qt, D.squared_norms(qt), k,
+                                                allowed_tail)
+                # lax.top_k's order: ties to the block result over the tail
+                sc, sel = T.topk_smallest_by_index(torch.cat([sc, t_sc], 1), k)
+                ids = torch.gather(torch.cat([ids, t_ids], 1), 1, sel)
+            return D.score_to_distance(sc, metric), ids
 
     def _scan_all(self, qt, k: int, allowed_slots=None):
         """Exhaustive scan of the blocked store for ``probes >= n_blocks``

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from tpu_hnsw_torch.ops import distance as D
+from tpu_hnsw_torch.utils.profiling import annotate
 
 
 #: scores a step of the assignment holds (4 GB in f32): the reference's
@@ -78,29 +79,36 @@ def kmeans(
     def rows(src, idx):
         return src[torch.from_numpy(np.asarray(idx, np.int64)).to(dev)]
 
-    train = data
-    if sample is not None and n > sample:
-        train = rows(data, rng.choice(n, sample, replace=False))
-    x = train.float()
-    x_sq = D.squared_norms(x)
-    centroids = rows(x, rng.choice(x.shape[0], k, replace=False))
-    refill_pool = None
-    if balance and iters >= 3:
-        segments = [iters - 2 * (iters // 3)] + [iters // 3] * 2
-    else:
-        segments = [iters] if iters else []
-    for seg in segments:
-        centroids, counts = _lloyd(x, x_sq, centroids, k, seg)
-        if balance:
-            empty = np.where(counts.cpu().numpy() < 1)[0]
-            if len(empty):
-                if refill_pool is None:
-                    pool_n = min(x.shape[0], max(1024, k))
-                    refill_pool = rows(
-                        x, rng.choice(x.shape[0], pool_n, replace=False))
-                centroids = centroids.clone()
-                centroids[torch.from_numpy(empty).to(dev)] = rows(
-                    refill_pool, rng.choice(len(refill_pool), len(empty)))
+    m = n if sample is None else min(n, sample)
+    with annotate("kmeans", m):
+        with annotate("kmeans_sample", m):
+            train = data
+            if m < n:
+                train = rows(data, rng.choice(n, sample, replace=False))
+            x = train.float()
+            x_sq = D.squared_norms(x)
+            centroids = rows(x, rng.choice(x.shape[0], k, replace=False))
+        refill_pool = None
+        if balance and iters >= 3:
+            segments = [iters - 2 * (iters // 3)] + [iters // 3] * 2
+        else:
+            segments = [iters] if iters else []
+        for seg in segments:
+            with annotate("kmeans_lloyd", m):
+                centroids, counts = _lloyd(x, x_sq, centroids, k, seg)
+            if not balance:
+                continue
+            with annotate("kmeans_refill") as span:
+                empty = np.where(counts.cpu().numpy() < 1)[0]
+                span.work = len(empty)
+                if len(empty):
+                    if refill_pool is None:
+                        pool_n = min(x.shape[0], max(1024, k))
+                        refill_pool = rows(
+                            x, rng.choice(x.shape[0], pool_n, replace=False))
+                    centroids = centroids.clone()
+                    centroids[torch.from_numpy(empty).to(dev)] = rows(
+                        refill_pool, rng.choice(len(refill_pool), len(empty)))
     if not assign_full:
         return centroids, torch.zeros(0, dtype=torch.int64, device=dev)
     step = 1 << 18

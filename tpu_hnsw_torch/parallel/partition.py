@@ -1035,7 +1035,7 @@ class ShardedBlockSearcher:
         table; -1 where the query is not routed to the partition."""
         L, b = self.blocks.shape[:2]
         nq = q.shape[0]
-        with annotate("route"):
+        with annotate("route", nq):
             sc = _centroid_scores(self.centroids.view(L * b, -1),
                                   self.centroids_sq.view(-1), q, q_sq,
                                   self.parent.cfg.metric)
@@ -1059,7 +1059,7 @@ class ShardedBlockSearcher:
         nq = q.shape[0]
         q_sq = D.squared_norms(q)
         bids = self._route(q, q_sq, selected, probes)
-        with annotate("expand"):
+        with annotate("expand", nq):
             qv = q.repeat_interleave(L, 0)
             qv_sq = q_sq.repeat_interleave(L, 0)
             gids = self.block_gids.view(L * b, S)
@@ -1091,20 +1091,23 @@ class ShardedBlockSearcher:
         (raw scores ``[Q, k]`` ascending, global ids, -1 where missing)
         tensors on the device, every rank the same. Routing uses the raw
         queries; scoring normalises them where the metric needs it."""
-        validate_ef_search(max(ef_search, 1))
-        merge_fn = _merge(merge)
-        metric = self.parent.cfg.metric
-        if probes is None:
-            probes = self.probes_for_ef(max(ef_search, k))
-        probes = max(1, min(int(probes), self.blocks.shape[1]))
-        route_k = self.parent.route_k if route_k is None else route_k
-        qraw = self._queries(queries)
-        selected = self._selected(qraw, route_k)
-        q = D.l2_normalize(qraw) if metric.needs_normalized else qraw
-        sc, ids = self._fan_out(q, selected, k=k, probes=probes)
-        with annotate("ici_merge"):
-            return merge_fn(sc, ids, k, self.group,
-                            dedup=self.parent.has_replicas)
+        with annotate("search") as span:
+            validate_ef_search(max(ef_search, 1))
+            merge_fn = _merge(merge)
+            metric = self.parent.cfg.metric
+            if probes is None:
+                probes = self.probes_for_ef(max(ef_search, k))
+            probes = max(1, min(int(probes), self.blocks.shape[1]))
+            route_k = self.parent.route_k if route_k is None else route_k
+            with annotate("queries") as qspan:
+                qraw = self._queries(queries)
+                span.work = qspan.work = qraw.shape[0]
+            selected = self._selected(qraw, route_k)
+            q = D.l2_normalize(qraw) if metric.needs_normalized else qraw
+            sc, ids = self._fan_out(q, selected, k=k, probes=probes)
+            with annotate("ici_merge", qraw.shape[0]):
+                return merge_fn(sc, ids, k, self.group,
+                                dedup=self.parent.has_replicas)
 
     def search(self, queries, k: int = 10, ef_search: int = 40,
                probes: int | None = None, route_k: int | None = None,
