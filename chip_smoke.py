@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py config_e    # the kernel builds and phase 8 alone
+    python3 chip_smoke.py route       # the route kernel's build and phase 3b
 
 Phases (any failure exits non-zero; nothing falls back to the CPU or to a
 plain version):
 
 1. require CUDA, then print the card (``nvidia-smi`` name and power limit);
-2. build both kernel libraries (``expand_score``, ``hamming_scan``) from
-   ``tpu_hnsw_torch/csrc`` with two ``nvcc`` processes started together,
+2. build the kernel libraries (``expand_score``, ``hamming_scan``,
+   ``route_topk``) from ``tpu_hnsw_torch/csrc``, one ``nvcc`` process each,
+   started together,
    and print each kernel's ``-Xptxas=-v`` registers, spills and shared
    memory;
    once the host data is made (below), the three merges of
@@ -24,6 +26,13 @@ plain version):
    the grouped route where a query's keys fit its merge); time both
    entries, the fused entry's routes in turns, and the earlier design's
    composite (all scores, then ``torch.topk``) with CUDA events;
+3b. the route kernel (``csrc/route_topk.cu``) at the benchmark cells'
+   shapes (p 8) and the CLI eval's and bench grid's wider p: ids equal to
+   its plain version's on integer rows, within the f32 tolerance of
+   float64 on normal rows, timed beside its bound, the plain version and
+   the library chain it replaced; the route's counters (``ROUTE_LAUNCHES``)
+   must equal the calls made on each path, here, in the block path and in
+   config D;
 4. the block path at full size: ``BlockHnswIndex`` over
    ``synthetic_clustered(1_000_000, 128, n_queries=4096, seed=42)``, built
    from host input and from a CUDA tensor, graded against the port's
@@ -222,6 +231,7 @@ from tpu_hnsw_torch.ops import _nvcc
 from tpu_hnsw_torch.ops import bitops as BO
 from tpu_hnsw_torch.ops import expand as X
 from tpu_hnsw_torch.ops import hamming as H
+from tpu_hnsw_torch.ops import route as R
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.ops.vector_ops import binary_quantize
 from tpu_hnsw_torch.parallel import collectives as C
@@ -681,6 +691,36 @@ def expand_launches() -> dict:
                for k, v in X.TOPR_ROUTE_LAUNCHES.items()}}
 
 
+@contextmanager
+def counted_routes():
+    """Resets ``ROUTE_LAUNCHES`` and counts ``route_topk``'s calls that have
+    queries and groups by the path its dispatch owes them (``R.fused``):
+    the counters must then equal these counts (:func:`route_launches`)."""
+    calls = {"fused": 0, "gemm_topk": 0, "plain": 0}
+    inner = R.route_topk
+
+    def counting(centroids, c_sq, q, q_sq, p, *args, **kw):
+        if q.shape[0] > 0 and (centroids.dim() == 2 or centroids.shape[0]):
+            calls["fused" if R.fused(centroids, p) else "gemm_topk"] += 1
+        return inner(centroids, c_sq, q, q_sq, p, *args, **kw)
+
+    R.ROUTE_LAUNCHES.update(fused=0, gemm_topk=0, plain=0)
+    R.route_topk = counting
+    try:
+        yield calls
+    finally:
+        R.route_topk = inner
+
+
+def route_launches(calls: dict, kernel: bool = True) -> dict:
+    """The route's launches by path under :func:`counted_routes`: one kernel
+    launch a fused call, one chain a wider call, nothing on the CPU; with
+    ``kernel``, some call must have taken the kernel."""
+    out = dict(R.ROUTE_LAUNCHES)
+    assert out == calls and (out["fused"] > 0 or not kernel), (out, calls)
+    return out
+
+
 def reset_expand_counts() -> None:
     """Sets every expand launch counter to 0."""
     X.LAUNCHES = X.TOPR_LAUNCHES = 0
@@ -1003,9 +1043,8 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def build_phase() -> dict:
-    """Both kernel libraries, compiled by two nvcc processes at once."""
-    names = (X.NAME, H.NAME)
+def build_phase(names=(X.NAME, H.NAME, R.NAME)) -> dict:
+    """The kernel libraries, compiled by one nvcc process each at once."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         done = {n: pool.submit(timed_build, n) for n in names}
@@ -1018,8 +1057,113 @@ def build_phase() -> dict:
             print(f"{name} -Xptxas=-v per kernel: "
                   f"{json.dumps(ptxas_summary(log))}", flush=True)
     wall = time.perf_counter() - t0
-    print(f"both kernel libraries built in {wall:.2f} s", flush=True)
+    print(f"kernel libraries built in {wall:.2f} s", flush=True)
     return {n: b[2] for n, b in built.items()}
+
+
+#: the route's shapes: (what, Q, groups, centroids a group, d, metric, p):
+#: the benchmark cells' (p 8), the CLI eval sweep's 512-query chunks of the
+#: 1M x 128 index at 34 and 105 probes, and the bench grid's widest p
+ROUTE_SHAPES = (("sift1m.bulk", 4096, 1, 4102, 128, Metric.L2, 8),
+                ("deep10m.bulk", 4096, 8, 5127, 96, Metric.IP, 8),
+                ("sift1m.interactive", 32, 1, 4102, 128, Metric.L2, 8),
+                ("cli.eval.p34", 512, 1, 4102, 128, Metric.L2, 34),
+                ("cli.eval.p105", 512, 1, 4102, 128, Metric.L2, 105),
+                ("bench.grid.p128", 4096, 1, 4102, 128, Metric.L2, 128))
+
+
+def route_operands(dev, seed: int, Q: int, L: int, b: int, d: int,
+                   metric: Metric, ints: bool):
+    """(centroids [L, b, d], c_sq, q, q_sq) on the card: integers in [-4, 4]
+    (every f32 dot exact, ties everywhere) or normal rows (unit rows for
+    IP, as DEEP's)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if ints:
+        c = torch.randint(-4, 5, (L, b, d), generator=g, device=dev).float()
+        q = torch.randint(-4, 5, (Q, d), generator=g, device=dev).float()
+    else:
+        c = torch.randn((L, b, d), generator=g, device=dev)
+        q = torch.randn((Q, d), generator=g, device=dev)
+        if metric is Metric.IP:
+            c, q = F.normalize(c, dim=-1), F.normalize(q, dim=-1)
+    return c, (c * c).sum(-1), q, (q * q).sum(-1)
+
+
+def route_f64_gap(ids, c, q, metric: Metric) -> tuple[float, float, float]:
+    """(widest margin by which a chosen centroid's float64 score is worse
+    than an unchosen one's, widest inversion of the chosen order, the f32
+    tolerance d * eps * (max |q|^2 + max |c|^2))."""
+    c64, q64 = c.double(), q.double()
+    dots = torch.einsum("qd,lbd->qlb", q64, c64)
+    sc = ((q64 * q64).sum(1)[:, None, None] + (c64 * c64).sum(-1)[None]
+          - 2 * dots) if metric is Metric.L2 else -dots
+    chosen = torch.gather(sc, 2, ids)
+    others = sc.scatter(2, ids, torch.inf).amin(-1)
+    worst = (chosen.amax(-1) - others).clamp_min(0).max().item()
+    order = (chosen[..., :-1] - chosen[..., 1:]).clamp_min(0).max().item()
+    tol = c.shape[-1] * float(np.finfo(np.float32).eps) * (
+        (q * q).sum(1).max().item() + (c * c).sum(-1).max().item())
+    return worst, order, tol
+
+
+def route_phase(card: str, dev: torch.device) -> list:
+    """The route kernel (``csrc/route_topk.cu``, ``ops/route.py``) at
+    ``ROUTE_SHAPES``: on integer rows its ids equal the plain version's
+    (ties to the lower index); on normal rows every chosen centroid is
+    within the f32 tolerance of float64 and few rows differ from the plain
+    version's (a cuBLAS GEMM, another summation order). Timed by CUDA
+    events beside its bound (``bound(bytes, 2 Q L b d, "float32")``), the
+    plain version and the library chain (the f32 GEMM, +inf padding, then
+    ``topk_smallest_fast``: a radix ``torch.topk`` over these rows), at
+    every shape, whichever ``route_topk`` takes there (``path``); the
+    route's counters must equal the calls made on each path."""
+    out = []
+    for what, Q, L, b, d, metric, p in ROUTE_SHAPES:
+        exact = route_operands(dev, 1, Q, L, b, d, metric, ints=True)
+        want = R.route_topk_reference(*exact, p, metric)
+        got = R._launch(*exact, p, metric, None, False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"route ids differ at {what}"
+        ops = route_operands(dev, 2, Q, L, b, d, metric, ints=False)
+        got = R._launch(*ops, p, metric, None, False)
+        want = R.route_topk_reference(*ops, p, metric)
+        worst, order, tol = route_f64_gap(got, ops[0], ops[2], metric)
+        assert worst <= tol and order <= tol, (what, worst, order, tol)
+        differ = (got != want).any(-1).float().mean().item()
+        assert differ < 0.01, (what, differ)
+        path = "fused" if R.fused(ops[0], p) else "gemm_topk"
+        with counted_routes() as calls:
+            ms, smi = sampled_ms(lambda: R.route_topk(*ops, p, metric))
+        launches = route_launches(calls, kernel=path == "fused")
+        kernel = lambda: R._launch(*ops, p, metric, None, False)  # noqa
+        kernel_ms, dev_ms = cuda_ms(kernel, 20), device_ms(kernel)
+        plain_ms = cuda_ms(lambda: R.route_topk_reference(*ops, p, metric),
+                           5)
+        chain = lambda: R.route_topk_reference(  # noqa: E731
+            *ops, p, metric, select=T.topk_smallest_fast)
+        lib_ms, lib_dev_ms = cuda_ms(chain, 20), device_ms(chain)
+        nbytes = 4 * (Q * d + Q + L * b * d + L * b) + 8 * Q * L * p
+        flops = 2 * Q * L * b * d
+        bound_ms, by = bound(nbytes, flops, "float32")
+        row = {"of": what, "Q": Q, "groups": L, "centroids": b, "d": d,
+               "metric": metric.value, "p": p, "path": path,
+               "split": R.split_count(Q, L, b, p,
+                                      R._slots(dev.index or 0, p)),
+               "ms": kernel_ms, "device_ms": dev_ms, "route_ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_device_ms": lib_dev_ms,
+               "kernel_over_library": kernel_ms / lib_ms,
+               "bound_ms": bound_ms, "bound_by": by,
+               "roofline_pct": 100.0 * bound_ms / kernel_ms,
+               "tflops": flops / kernel_ms / 1e9, "launches": launches,
+               "f64_worst": worst, "f64_order": order, "f64_tol": tol,
+               "rows_differing_from_plain": differ, "nvidia_smi": smi,
+               "card": card}
+        print(f"route at {what}: {json.dumps(row)}", flush=True)
+        out.append(row)
+        del exact, ops, want, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def sq_bound(*arrays) -> float:
@@ -3511,12 +3655,15 @@ class HostData:
 
 
 def main() -> None:
-    if sys.argv[1:] not in ([], ["config_e"]):
-        raise SystemExit("usage: python3 chip_smoke.py [config_e]")
+    if sys.argv[1:] not in ([], ["config_e"], ["route"]):
+        raise SystemExit("usage: python3 chip_smoke.py [config_e|route]")
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script needs a GPU")
     if sys.argv[1:] == ["config_e"]:
         run_config_e()
+        return
+    if sys.argv[1:] == ["route"]:
+        run_route()
         return
     with HostData() as host:
         run(host)
@@ -3537,6 +3684,18 @@ def run_config_e() -> None:
     print(card, flush=True)
 
 
+def run_route() -> None:
+    """The route kernel's phase alone, after its build."""
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    with phase("kernel builds"):
+        build_phase((R.NAME,))
+    with phase("route"):
+        out = route_phase(card, torch.device("cuda"))
+    print(json.dumps({"route": out, "phase_s": PHASE_S}), flush=True)
+    print(card, flush=True)
+
+
 def run(host: HostData) -> None:
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -3554,15 +3713,19 @@ def run(host: HostData) -> None:
     with phase("expand kernel checks"):
         variants, topr, random_timing = kernel_phase(base, queries, card,
                                                      dev)
+    with phase("route"):
+        route = route_phase(card, dev)
 
     with phase("block path"):
         # count only the block path's launches
         H.LAUNCHES = 0
         reset_expand_counts()
-        numbers, idx, gt = main_path(base, queries, card, dev)
+        with counted_routes() as calls:
+            numbers, idx, gt = main_path(base, queries, card, dev)
         launches = expand_launches()
         assert launches["expand_topr"] > 0, \
             "the block path never launched expand_topr"
+        route_paths = {"block_1Mx128": route_launches(calls)}
         timings = [random_timing, routed_timing(
             idx, torch.from_numpy(queries[:KERNEL_Q]).to(dev),
             numbers["probes"], 40, card, "1M x 128 index, routed bids")]
@@ -3639,7 +3802,9 @@ def run(host: HostData) -> None:
 
     # config D at full width: its launch counters are kept by the phase
     with phase("config D"):
-        cfg_d = config_d_phase(card, dev, host.take("config_d"))
+        with counted_routes() as calls:
+            cfg_d = config_d_phase(card, dev, host.take("config_d"))
+        route_paths["config_d_10Mx96"] = route_launches(calls)
         d_launches = cfg_d.pop("launches")
         assert d_launches["expand_topr"] > 0, \
             "config D never launched expand_topr"
@@ -3693,6 +3858,7 @@ def run(host: HostData) -> None:
     print(json.dumps({"main_path": numbers, "lifecycle": life,
                       "profile_ranges": ranges, "data_files": files,
                       "cli": cli, "bench_s": bench["s"], "planner": plan,
+                      "route": route, "route_launches": route_paths,
                       "graph": graph, "ivf": ivf, "partition_modes": modes,
                       "config_d": cfg_d, "config_e": cfg_e,
                       "mesh_build": mesh,
@@ -3778,7 +3944,21 @@ def run(host: HostData) -> None:
         ("grouped", "(expand_topr_grouped_launch: grouped_kernel<TOPR>, "
                     "merge_kernel)", random_timing),
         ("ring", "(expand_topr_launch: stage_kernel, select_kernel)",
-         stacked_timing))], {
+         stacked_timing))], *[{
+        "name": "route_topk", "route": "cuda",
+        "source": "tpu_hnsw_torch/csrc/route_topk.cu (route_topk_launch: "
+                  "route_topk_tile, route_topk_reduce)",
+        "replaces": "the XLA dot and top_k of tpu_hnsw/index/block.py:287 "
+                    "(_route_exact_body); no Pallas kernel",
+        "launches_by_path": route_paths,
+        "ms": at["ms"], "device_ms": at["device_ms"],
+        "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+        "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+        "library_of": "f32 GEMM, then topk_smallest_fast (torch.topk)",
+        "timed_at": f"{at['of']}: Q={at['Q']} groups={at['groups']} "
+                    f"b={at['centroids']} d={at['d']} p={at['p']}; ms: CUDA "
+                    "events over back-to-back calls",
+    } for at in route], {
         "name": "hamming_scan", "route": "cuda",
         "source": "tpu_hnsw_torch/csrc/hamming_scan.cu",
         "replaces": "tpu_hnsw/ops/pallas_hamming.py:52",

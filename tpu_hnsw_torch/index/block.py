@@ -39,6 +39,7 @@ from tpu_hnsw_torch.index import flat as FL
 from tpu_hnsw_torch.index.hnsw import HnswIndex, _tensor
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import expand as X
+from tpu_hnsw_torch.ops import route as R
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.parallel import kmeans as KM
 from tpu_hnsw_torch.utils.device import entry_device
@@ -163,18 +164,10 @@ def _expand_blocks_2stage(blocks_score, blocks_sq, block_ids, flat_exact, q,
     return vals, torch.where(torch.isfinite(vals), ids, -1)
 
 
-def _centroid_scores(centroids, c_sq, q, q_sq, metric: Metric):
-    """``[Q, B]`` query-centroid scores: one f32 GEMM (a library GEMM)."""
-    dots = q.to(centroids.dtype).float() @ centroids.float().T
-    if metric is Metric.L2:
-        return q_sq[:, None] + c_sq[None, :] - 2.0 * dots
-    return -dots
-
-
 def _route_exact(centroids, c_sq, q, q_sq, *, p: int, metric: Metric):
-    """Exact top-p blocks per query (block.py:287-306)."""
-    return T.topk_smallest_fast(
-        _centroid_scores(centroids, c_sq, q, q_sq, metric), p)[1]
+    """Exact top-p blocks per query (block.py:287-306): ``[Q, p]`` ids,
+    ascending by (score, block), from ``ops/route.py::route_topk``."""
+    return R.route_topk(centroids, c_sq, q, q_sq, p, metric)[:, 0]
 
 
 def _route_exact_sorted(centroids, c_sq, q, q_sq, *, p: int, metric: Metric):
@@ -182,7 +175,7 @@ def _route_exact_sorted(centroids, c_sq, q, q_sq, *, p: int, metric: Metric):
     so iterative scans expand column slices ``[p_prev, p)`` of one ranking.
     ``lax.top_k``'s order: ties to the lower block."""
     return T.topk_smallest_by_index(
-        _centroid_scores(centroids, c_sq, q, q_sq, metric), p)[1]
+        R.centroid_scores(centroids, c_sq, q, q_sq, metric), p)[1]
 
 
 def _scan_tail(tail, tail_sq, tail_ids, q, q_sq, allowed_tail=None, *,

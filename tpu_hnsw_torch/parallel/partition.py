@@ -42,12 +42,13 @@ import torch.distributed as dist
 
 from tpu_hnsw_torch.config import HnswConfig, Metric, validate_ef_search
 from tpu_hnsw_torch.index import graph as G
-from tpu_hnsw_torch.index.block import (BlockHnswIndex, _centroid_scores,
-                                        _check_score_dtype, _expand_blocks,
-                                        _expand_blocks_2stage, _score_width)
+from tpu_hnsw_torch.index.block import (BlockHnswIndex, _check_score_dtype,
+                                        _expand_blocks, _expand_blocks_2stage,
+                                        _score_width)
 from tpu_hnsw_torch.index.hnsw import HnswIndex
 from tpu_hnsw_torch.index.search import _descend_body, _search_layer_body
 from tpu_hnsw_torch.ops import distance as D
+from tpu_hnsw_torch.ops import route as R
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.parallel import collectives as C
 from tpu_hnsw_torch.parallel import kmeans as KM
@@ -816,16 +817,14 @@ class ShardedBlockSearcher:
 
     def _finish(self, n_blocks: list, max_blocks: int, two_stage: bool,
                 rerank_width: int) -> None:
-        """Routing masks and offsets of the stacked layout."""
-        L, b = self.blocks.shape[:2]
+        """Each partition's live centroid count and the serving options."""
+        b = self.blocks.shape[1]
         dev = self.device
         self._max_blocks = max(max_blocks, 1)
-        nb = torch.tensor(n_blocks, dtype=torch.int64, device=dev)
-        # centroid columns at or past a partition's block count score +inf
-        # (block.py:303-304); None when no partition has padded blocks
-        padded = torch.arange(b, device=dev)[None, :] >= nb[:, None]
-        self._padded = padded if min(n_blocks) < b else None
-        self._offsets = (torch.arange(L, device=dev) * b)[None, :, None]
+        # each partition's live centroids: the columns past them are never
+        # routed to (block.py:303-304); None when no partition has padding
+        self._live = (torch.tensor(n_blocks, dtype=torch.int32, device=dev)
+                      if min(n_blocks) < b else None)
         self.two_stage = bool(two_stage)
         self.rerank_width = int(rerank_width)
         self._router_centroids = None
@@ -1030,23 +1029,17 @@ class ShardedBlockSearcher:
 
     def _route(self, q, q_sq, selected, probes: int) -> torch.Tensor:
         """``[Q*(P/R), probes]`` stacked block ids, query-major: the probes
-        nearest blocks of each (query, local partition) pair from one GEMM
-        against the ``[(P/R)*b, d]`` centroids, offset into the stacked
-        table; -1 where the query is not routed to the partition."""
-        L, b = self.blocks.shape[:2]
+        nearest blocks of each (query, local partition) pair from one
+        ``route_topk`` over the ``[P/R, b, d]`` centroids, offset into the
+        stacked table; -1 where the query is not routed to the partition."""
+        L = self.blocks.shape[0]
         nq = q.shape[0]
         with annotate("route", nq):
-            sc = _centroid_scores(self.centroids.view(L * b, -1),
-                                  self.centroids_sq.view(-1), q, q_sq,
-                                  self.parent.cfg.metric)
-            sc = sc.view(nq, L, b)
-            if self._padded is not None:
-                sc = torch.where(self._padded, torch.inf, sc)
-            # the block engine's own route top-k (_route_exact,
-            # block.py:305): lax.top_k's order up to 256 blocks, a radix
-            # top-k above (the reference's approx_min_k orders ties
-            # arbitrarily there too)
-            bids = T.topk_smallest_fast(sc, probes)[1] + self._offsets
+            # the block engine's own route (_route_exact, block.py:305),
+            # each partition's ids offset into the stacked table
+            bids = R.route_topk(self.centroids, self.centroids_sq, q, q_sq,
+                                probes, self.parent.cfg.metric,
+                                live=self._live, offset=True)
             if selected is not None:  # an unrouted partition scans no block
                 bids = torch.where(selected[:, :, None], bids, -1)
             return bids.view(nq * L, probes)
