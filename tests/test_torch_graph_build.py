@@ -308,6 +308,103 @@ def test_nonfinite_tensor_rejected_before_any_state_changes(bulk):
     assert ref.n == 0 and ref.n_upper > 0  # the divergence the port fixes
 
 
+def test_bulk_build_links_rows_every_cluster_dropped(monkeypatch):
+    """300 copies of one row all take the same two nearest centroids, so
+    both clusters hold more members than their 4 * cluster_size slots and
+    drop the rest, as the reference does (``mode="drop"``). There a row
+    dropped from both of its clusters gets no level-0 link: found by no
+    search, and a dead end as a route seed (2,775 such rows in a 1M x 128
+    cell's build). The port gives such rows candidates from an exact scan,
+    so every row is linked."""
+    base, _ = synthetic_clustered(2000, 16, n_queries=1, seed=3)
+    base[:300] = base[0]
+    cfg = HnswConfig(dim=16, m=8, ef_construction=32, seed=0)
+
+    def degrees():
+        idx = HnswIndex(cfg, device="cpu")
+        BC.build_bulk(idx, base, cluster_size=16)
+        check_invariants(idx, reachable=False)
+        return (idx.graph.neighbors0[:2000] != idx.graph.sentinel).sum(1)
+
+    assert degrees().min() > 0
+    monkeypatch.setattr(BC, "_link_orphans", lambda *a, **k: None)
+    assert (degrees() == 0).sum() > 100  # the reference's drop
+
+
+def _sq_l2(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Squared L2 distances in float64, ``[len(a), len(b)]``."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+
+
+def test_link_orphans_gives_their_exact_nearest():
+    """Rows of the candidate table that hold only sentinels take their k
+    nearest of all n rows (never themselves), held to a float64 brute
+    force up to f32 ties at the k-th distance; every other row, and the
+    rows past n, stay as they were."""
+    base, _ = synthetic_clustered(1500, 16, n_queries=1, seed=5)
+    n, k = 1500, 12
+    idx = HnswIndex(HnswConfig(dim=16, m=8, ef_construction=32, seed=0),
+                    device="cpu").build(base)
+    g = idx.graph
+    gen = torch.Generator().manual_seed(0)
+    all_ci = torch.randint(0, n, (2048, 20), generator=gen,
+                           dtype=torch.int32)
+    orphans = torch.tensor([0, 7, 500, 1499])
+    all_ci[orphans] = g.sentinel
+    all_ci[n:] = g.sentinel
+    kept = all_ci.clone()
+    BC._link_orphans(g, all_ci, n, k=k, metric=Metric.L2)
+    others = torch.ones(2048, dtype=torch.bool)
+    others[orphans] = False
+    assert torch.equal(all_ci[others], kept[others])
+    assert (all_ci[orphans, k:] == g.sentinel).all()
+    d = _sq_l2(base[orphans.numpy()], base)
+    d[np.arange(len(orphans)), orphans.numpy()] = np.inf
+    for j, row in enumerate(all_ci[orphans, :k].numpy()):
+        kth = np.sort(d[j])[k - 1]
+        tol = 1e-5 * max(kth, 1.0)
+        assert len(set(row)) == k and orphans[j].item() not in row
+        assert (d[j, row] <= kth + tol).all()  # none beyond the k-th
+        must = np.where(d[j] < kth - tol)[0]  # clear of any tie
+        assert set(must) <= set(row)
+
+
+def test_bulk_build_orphan_rows_link_their_exact_neighbours(monkeypatch):
+    """The rows of the dropped-row build above that reach ``_link_orphans``
+    with no candidate end with level-0 rows drawn from their brute-force
+    nearest: each neighbour lies within the row's k-th nearest distance of
+    all rows (k the build's candidate width): a copy of row 0 links only
+    to other copies, at distance 0, and a row dropped from two clusters
+    that other rows overflowed to its nearest."""
+    base, _ = synthetic_clustered(2000, 16, n_queries=1, seed=3)
+    base[:300] = base[0]
+    cfg = HnswConfig(dim=16, m=8, ef_construction=32, seed=0)
+    seen = {}
+    link = BC._link_orphans
+
+    def spy(g, all_ci, n, *, k, metric):
+        seen["rows"] = torch.nonzero(
+            (all_ci[:n] == g.sentinel).all(1)).reshape(-1).numpy()
+        seen["k"] = k
+        link(g, all_ci, n, k=k, metric=metric)
+
+    monkeypatch.setattr(BC, "_link_orphans", spy)
+    idx = HnswIndex(cfg, device="cpu")
+    BC.build_bulk(idx, base, cluster_size=16)
+    rows, k = seen["rows"], seen["k"]
+    assert len(rows) > 100 and k == 32
+    nbrs = idx.graph.neighbors0[torch.from_numpy(rows)].numpy()
+    d = _sq_l2(base[rows], base)
+    d[np.arange(len(rows)), rows] = np.inf
+    for j, row in enumerate(nbrs):
+        row = row[row != idx.graph.sentinel]
+        kth = np.sort(d[j])[k - 1]
+        assert len(row) > 0
+        assert (d[j, row] <= kth + 1e-5 * max(kth, 1.0)).all(), rows[j]
+    assert (rows < 300).sum() > 100  # copies of row 0, whose k-th is 0
+
+
 def test_incoming_orders_edges_like_the_reference_lexsort():
     """_incoming ranks each target's edges by (distance, position), the
     reference's two-pass lexsort, and keeps the closest incoming_r."""

@@ -149,6 +149,25 @@ def _union_per_element(members, cand, sentinel: int, *, n_bucket: int,
     return out[:n_bucket].reshape(n_bucket, overlap * K)
 
 
+def _link_orphans(g: G.HnswGraph, all_ci, n: int, *, k: int,
+                  metric: Metric) -> None:
+    """Rows of ``all_ci`` (``[>= n, w]``, ``w >= k``) that hold no
+    candidate take their ``k`` nearest of all ``n`` rows from an exact
+    scan, in place (one host read). A cluster holds at most ``cs_cap``
+    members and drops the rest, as the reference does (``mode="drop"``);
+    a row dropped from each of its clusters would get no level-0 link and
+    be found by no search, and where it is an upper element it strands
+    every query routed to it."""
+    orphans = torch.nonzero((all_ci[:n] == g.sentinel).all(1)).reshape(-1)
+    if not orphans.numel():
+        return
+    every = torch.arange(n, dtype=torch.int32, device=all_ci.device)
+    for s in range(0, orphans.numel(), 8192):
+        rows = orphans[s:s + 8192]
+        all_ci[rows, :k] = _subset_topk(g, rows.to(torch.int32), every, k=k,
+                                        metric=metric, xblock=16384)[1]
+
+
 def _rescore_chunk(g: G.HnswGraph, b_ids, c_ids, *, metric: Metric):
     """Exact f32 base -> candidate scores for one chunk."""
     bv, _ = G.gather_vectors(g, b_ids)
@@ -377,6 +396,7 @@ def build_bulk(index, data, cluster_size: int = 1024, overlap: int = 2,
     all_ci = _union_per_element(members, cand, sent, n_bucket=n_bucket,
                                 overlap=overlap_eff)
     del cand
+    _link_orphans(g, all_ci, n, k=k_cand, metric=metric)
     mark("union_candidates")
 
     # exact re-score in chunks of rows

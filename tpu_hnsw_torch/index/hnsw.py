@@ -25,6 +25,7 @@ from tpu_hnsw_torch.index import search as SE
 from tpu_hnsw_torch.index import select as SEL
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.utils.device import entry_device
+from tpu_hnsw_torch.utils.profiling import annotate
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -342,8 +343,11 @@ class HnswIndex:
         validate_ef_search(ef_search)
         if self.graph is None or self.n == 0:
             raise ValueError("index is empty")
+        with annotate("queries") as qspan:
+            q = self._queries(queries)
+            qspan.work = q.shape[0]
         return SE.search(
-            self.graph, self._queries(queries), entry=max(self.entry, 0),
+            self.graph, q, entry=max(self.entry, 0),
             entry_level=max(self.entry_level, 0), k=k,
             ef_search=max(ef_search, k), metric=self.cfg.metric,
             expand=self.cfg.expand_per_step if expand is None else expand,
@@ -369,9 +373,12 @@ class HnswIndex:
         (greedy upper levels), "scan" (dense scan of the level >= 1
         subset), or "auto" (scan from ``ROUTE_SCAN_MIN_UPPER`` upper
         elements; descent always for L1)."""
-        scores, ids = self._search(queries, k, ef_search, expand, descent_ef,
-                                   max_steps, route, filter_mask, False)
-        return D.score_to_distance(scores, self.cfg.metric), ids
+        with annotate("search") as span:
+            scores, ids = self._search(queries, k, ef_search, expand,
+                                       descent_ef, max_steps, route,
+                                       filter_mask, False)
+            span.work = ids.shape[0]
+            return D.score_to_distance(scores, self.cfg.metric), ids
 
     def search(self, queries, k: int = 10, ef_search: int = 40,
                return_distances: bool = True, expand: int | None = None,

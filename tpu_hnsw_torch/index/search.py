@@ -39,10 +39,22 @@ from tpu_hnsw_torch.config import Metric
 from tpu_hnsw_torch.index import graph as G
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import topk as T
-from tpu_hnsw_torch.utils.profiling import annotate
+from tpu_hnsw_torch.utils.profiling import annotate, tracing
 
 #: steps between two termination tests of the lockstep loop (each a sync)
 CHECK_EVERY = 4
+
+#: level-0 beam steps run so far (every query moves one step in lockstep)
+BEAM_STEPS = 0
+#: termination tests of the level-0 beam that read the device (host syncs)
+BEAM_SYNCS = 0
+#: the least work of the serving beams counted under an open trace
+#: (:func:`_count_beam`): (query, expanded node) adjacency rows read, the
+#: distinct vectors those rows and the seeds name (pgvector's visited set
+#: reads each once), and the beams so counted
+BEAM_ROWS = 0
+BEAM_VECTORS = 0
+BEAM_COUNTED = 0
 
 
 def _neighbor_rows(g: G.HnswGraph, ids: torch.Tensor, level0: bool,
@@ -86,7 +98,11 @@ def _search_layer_body(g: G.HnswGraph, q: torch.Tensor, init_ids, level: int,
     ``init_state`` / ``return_state`` make the search resumable: the state is
     (pool_d, pool_i, pool_x, hist, hops, evals); a resume may widen ef, and
     ``reset_frontier`` clears the expanded flags and the history so the kept
-    pool becomes the new frontier."""
+    pool becomes the new frontier.
+
+    At level 0 each step run moves :data:`BEAM_STEPS`, and each
+    termination test :data:`BEAM_SYNCS` (host ints: no launch, no sync)."""
+    global BEAM_STEPS, BEAM_SYNCS
     E = min(expand, ef)
     deg = g.neighbors0.shape[1] if level0 else g.upper_nbrs.shape[2]
     sent = g.sentinel
@@ -135,8 +151,11 @@ def _search_layer_body(g: G.HnswGraph, q: torch.Tensor, init_ids, level: int,
         cand_d, pos = T.topk_smallest_by_index(
             torch.where(unexp, pool_d, torch.inf), E)
         ok = torch.isfinite(cand_d) & (cand_d <= pool_max[:, None])
-        if step % CHECK_EVERY == 0 and not bool(ok.any()):
-            break  # no query is active: the reference's loop ends here
+        if step % CHECK_EVERY == 0:
+            BEAM_SYNCS += int(level0)
+            if not bool(ok.any()):
+                break  # no query is active: the reference's loop ends here
+        BEAM_STEPS += int(level0)
         e_ids = torch.where(ok, torch.gather(pool_i, 1, pos), sent)
         pool_x.scatter_(1, pos, torch.gather(pool_x, 1, pos) | ok)
         s0 = (step % hist_slots) * E
@@ -296,6 +315,33 @@ def scan_seeds(g: G.HnswGraph, q: torch.Tensor, upper_ids: torch.Tensor, *,
                             metric)
 
 
+def _count_beam(g: G.HnswGraph, seeds: torch.Tensor, hist: torch.Tensor,
+                steps: int, E: int, allowed) -> None:
+    """Adds one level-0 beam's least work to :data:`BEAM_ROWS` and
+    :data:`BEAM_VECTORS` (one host read): the adjacency rows of the nodes
+    it expanded, and the distinct vectors of the seeds and of those rows'
+    neighbours that it may score. Read off the history ring, which holds
+    every expanded id (a sentinel where a query was idle) as long as it
+    has not wrapped; a beam whose ring wrapped is not counted."""
+    global BEAM_ROWS, BEAM_VECTORS, BEAM_COUNTED
+    if steps > hist.shape[1] // E:
+        return
+    sent = g.sentinel
+    done = hist[:, :steps * E]
+    nbrs = g.neighbors0[done].reshape(done.shape[0], -1)
+    skip = g.deleted[nbrs]
+    if allowed is not None:
+        skip |= ~allowed[nbrs]
+    ids = torch.cat([seeds, torch.where(skip, sent, nbrs)], 1).sort(1)[0]
+    new = torch.ones_like(ids, dtype=torch.bool)
+    new[:, 1:] = ids[:, 1:] != ids[:, :-1]
+    rows, vectors = torch.stack([(done != sent).sum(),
+                                 (new & (ids != sent)).sum()]).tolist()
+    BEAM_ROWS += rows
+    BEAM_VECTORS += vectors
+    BEAM_COUNTED += 1
+
+
 def search(g: G.HnswGraph, queries: torch.Tensor, *, entry: int,
            entry_level: int, k: int, ef_search: int, metric: Metric,
            expand: int = 1, max_steps: int = 0, descent_ef: int = 1,
@@ -311,21 +357,29 @@ def search(g: G.HnswGraph, queries: torch.Tensor, *, entry: int,
         # slow tail queries without running the batch long after the rest
         max_steps = ef // max(expand, 1) + 16
     q = queries.to(g.vectors.dtype)
+    nq = q.shape[0]
     if upper_ids is not None and metric is not Metric.L1:
-        with annotate("route_scan"):
+        with annotate("route_scan", nq):
             seeds = _scan_seeds_body(g, q, upper_ids, max(descent_ef, 1),
                                      metric)
     else:
-        with annotate("descend"):
+        with annotate("descend", nq):
             seeds = _descend_body(g, q, entry, entry_level, 0, metric,
                                   descent_ef=descent_ef)
-    with annotate("beam_level0"):
+    counting, steps0 = tracing(), BEAM_STEPS
+    with annotate("beam_level0", nq):
         out = _search_layer_body(g, q, seeds, 0, level0=True, ef=ef,
                                  expand=expand, max_steps=max_steps,
                                  metric=metric, skip_deleted=True,
                                  mask_deleted_results=True,
                                  with_counters=with_counters,
-                                 allowed=allowed)
+                                 return_state=counting, allowed=allowed)
+    if counting:  # after the beam's range, which keeps its device time
+        pool_d, pool_i, state = out
+        _count_beam(g, seeds, state[3], BEAM_STEPS - steps0,
+                    min(expand, ef), allowed)
+        out = (pool_d, pool_i, *state[4:]) if with_counters \
+            else (pool_d, pool_i)
     if with_counters:
         pool_d, pool_i, hops, evals = out
         return pool_d[:, :k], pool_i[:, :k], hops, evals

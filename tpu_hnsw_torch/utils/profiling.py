@@ -17,7 +17,19 @@ brackets):
   ``kmeans_refill`` (the empty-cluster re-seed and its host read);
   ``balanced_assign`` (rows) with ``assign_topk`` and ``assign_rounds``;
   ``install`` (rows);
-- the graph engine: ``descend``, ``route_scan``, ``beam_level0``.
+- the graph engine: ``search`` (queries) around the whole of
+  ``HnswIndex.search_device``, and inside it ``queries`` (queries:
+  validation and the upload), then ``route_scan`` (queries: the dense
+  scan of the level >= 1 elements) or ``descend`` (queries: the greedy
+  upper-level descent), and ``beam_level0`` (queries: the lockstep
+  level-0 beam). ``index/search.py`` counts the level-0 beam's work in
+  module ints: always ``BEAM_STEPS`` (lockstep steps run) and
+  ``BEAM_SYNCS`` (termination tests that read the device); and, only
+  while a :func:`trace` is open (:func:`tracing`), with one host read
+  after ``beam_level0`` closes, the beam's least work: ``BEAM_ROWS``
+  ((query, expanded node) adjacency rows), ``BEAM_VECTORS`` (distinct
+  vectors the seeds and those rows name) and ``BEAM_COUNTED`` (beams so
+  counted).
 
 Two things record them:
 
@@ -223,6 +235,12 @@ class _Off:
 
 
 _OFF = _Off()
+
+
+def tracing() -> bool:
+    """Whether a :func:`trace` is open: work that only a trace's readers
+    need (a count that reads the device) runs only then."""
+    return bool(_active)
 
 
 def annotate(name: str, work: int | None = None):
