@@ -3,13 +3,16 @@
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py config_e    # the kernel builds and phase 8 alone
     python3 chip_smoke.py route       # the route kernel's build and phase 3b
+    python3 chip_smoke.py beam        # the beam kernel's build, the 1M
+                                      # graph and phase 5's beam check
 
 Phases (any failure exits non-zero; nothing falls back to the CPU or to a
 plain version):
 
 1. require CUDA, then print the card (``nvidia-smi`` name and power limit);
 2. build the kernel libraries (``expand_score``, ``hamming_scan``,
-   ``route_topk``) from ``tpu_hnsw_torch/csrc``, one ``nvcc`` process each,
+   ``route_topk``, ``beam_search``) from ``tpu_hnsw_torch/csrc``, one
+   ``nvcc`` process each,
    started together,
    and print each kernel's ``-Xptxas=-v`` registers, spills and shared
    memory;
@@ -78,7 +81,11 @@ plain version):
    expected failure; then the graph engine on the same rows
    (bulk build, and again with ``refine_rounds=1``: its stages and recall
    at the ladder's first two points beside the default build's; bench.py's
-   ladder, QPS, graph-routed ``BlockHnswIndex``,
+   ladder, QPS; the level-0 beam kernel (``csrc/beam_search.cu``) against
+   the torch loop at the graph cell's shape, 4,096 queries at ef 40: ids
+   on >= 99.9% of rows, everything equal on integer-valued rows, timed
+   beside its bound and the loop, ``BEAM_LAUNCHES`` equal to the calls
+   made on each path; graph-routed ``BlockHnswIndex``,
    graph add/delete/compact/iterative/save-load);
 6. ``IvfFlatIndex(128, L2, lists=1000)`` on the same rows: build, recall@10
    and QPS (``utils/evalharness.measure_qps``) at probes 1-32, peak
@@ -129,7 +136,8 @@ plain version):
    ``build(mesh="auto")`` against each partition's rows built by
    ``HnswIndex(capacity=25_000).build(mode="wave")`` in turn (every graph
    tensor, entry and level equal), both times; a profiled steady wave of
-   each; recall@10 at ef_search 64 through ``search`` and ``sharded()``;
+   each; recall@10 at ef_search 64 through ``search`` (the beam kernel)
+   and ``sharded()`` (the torch loop): ids equal but for near-ties;
    the sequential bulk build's time for scale; then the lockstep build of
    all 1M rows (dense-scan seeding past 4,096 upper elements a
    partition), its time and recall@10;
@@ -223,11 +231,13 @@ from tpu_hnsw_torch import planner as PL
 from tpu_hnsw_torch.index.block import (_make_score_copy, _pad_cols,
                                         _quantize_rows, _route_exact)
 from tpu_hnsw_torch.index import flat as FL
+from tpu_hnsw_torch.index import search as SE
 from tpu_hnsw_torch.index.build_cluster import build_bulk
 from tpu_hnsw_torch.io import datasets as DS
 from tpu_hnsw_torch.io import native
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
 from tpu_hnsw_torch.ops import _nvcc
+from tpu_hnsw_torch.ops import beam as BM
 from tpu_hnsw_torch.ops import bitops as BO
 from tpu_hnsw_torch.ops import expand as X
 from tpu_hnsw_torch.ops import hamming as H
@@ -239,6 +249,8 @@ from tpu_hnsw_torch.utils import profiling
 from tpu_hnsw_torch.utils import evalharness as E
 from tpu_hnsw_torch.utils.evalharness import measure_qps
 from tpu_hnsw_torch.utils.recall import recall_at_k
+
+from hnswbench import roofline_graph
 
 N, DIM, NQ, DATA_SEED = 1_000_000, 128, 4096, 42
 BLOCK = 256
@@ -1043,7 +1055,7 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def build_phase(names=(X.NAME, H.NAME, R.NAME)) -> dict:
+def build_phase(names=(X.NAME, H.NAME, R.NAME, BM.NAME)) -> dict:
     """The kernel libraries, compiled by one nvcc process each at once."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -1677,6 +1689,128 @@ def graph_phase(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
         lambda: idx.search_device(qchunk, k=10, **kw), card,
         f"graph path, one {CHUNK}-query HnswIndex.search_device chunk")
     return out, idx, kw, breakdown
+
+
+def beam_against_loop(g, q, seeds, ef: int, metric: Metric) -> dict:
+    """The kernel and the loop on the same beam: rows whose ids (the whole
+    pool) and whose top 10 differ, and the steps, evals and rings of the
+    rows that agree. ``tie_gap``: at each differing row's first differing
+    slot, the float64 score gap of the two ids over the f32 rounding scale
+    (``2 d eps`` times the terms' absolute sum): at most 1 where the two
+    orders differ at a tie within rounding."""
+    max_steps = ef + 16
+    ring = SE.ring_width(max_steps, 1)
+    kd, ki, kh, khops, kevals = BM.beam_level0(
+        g, q, seeds, ef=ef, max_steps=max_steps, metric=metric, ring=ring)
+    ld, li, st = SE._search_layer_body(
+        g, q, seeds, 0, level0=True, ef=ef, expand=1, max_steps=max_steps,
+        metric=metric, skip_deleted=True, mask_deleted_results=True,
+        with_counters=True, return_state=True)
+    same = (ki == li).all(1)
+    out = {"Q": q.shape[0], "ef": ef, "metric": metric.value,
+           "rows_differing": int((~same).sum()),
+           "top10_rows_differing": int((~(ki[:, :10] == li[:, :10]).all(1))
+                                       .sum()),
+           "counters_equal": bool(torch.equal(khops[same], st[4][same])
+                                  and torch.equal(kevals[same],
+                                                  st[5][same])),
+           "rings_equal": (bool(torch.equal(kh[same], st[3][same]))
+                           if max_steps <= ring else None),
+           "score_gap": float((kd - ld)[same & torch.isfinite(kd).all(1)]
+                              .abs().max()) if bool(same.any()) else 0.0,
+           "longest": int(khops.max())}
+    gaps = []
+    for r in torch.nonzero(~same).reshape(-1).tolist()[:64]:
+        c = int(torch.nonzero(ki[r] != li[r])[0])
+        ids = torch.stack([ki[r, c], li[r, c]]).long()
+        x = g.vectors[ids].double()
+        qq = q[r].double()
+        if metric is Metric.L2:
+            terms = (qq - x) ** 2
+        elif metric is Metric.L1:
+            terms = (qq - x).abs()
+        else:
+            terms = -(qq * x)
+        sc = terms.sum(1)
+        tol = 2 * q.shape[1] * float(np.finfo(np.float32).eps) * float(
+            terms.abs().sum(1).max())
+        gaps.append(abs(float(sc[0] - sc[1])) / tol)
+    out["tie_gap"] = max(gaps, default=0.0)
+    return out
+
+
+def beam_phase(idx, qdev, card: str) -> dict:
+    """The level-0 beam kernel (``csrc/beam_search.cu``, ``ops/beam.py``)
+    at the graph cell's shape: the 1M x 128 bulk-built graph (m 16,
+    ef_construction 64), 4,096 queries at ef 40, seeded by the dense route.
+    Held to the loop: on the rows as they are, ids on >= 99.9% of rows
+    (ties within f32 rounding flip the rest) and the counters of the rows
+    that agree; on integer-valued rows (every f32 sum exact in any order)
+    everything equal, at ef 40 and 256 and in each metric. Timed by CUDA
+    events beside its bound (``hnswbench/roofline_graph.py``'s bytes of
+    the expanded rows and distinct vectors ``search._count_beam`` counts)
+    and the loop; ``BEAM_LAUNCHES`` must equal the calls made on each
+    path."""
+    g, Q, ef = idx.graph, qdev.shape[0], 40
+    metric = idx.cfg.metric
+    seeds = SE.scan_seeds(g, qdev, idx._upper_ids_dev(), descent_ef=1,
+                          metric=metric)
+    out = {"real": beam_against_loop(g, qdev, seeds, ef, metric)}
+    assert out["real"]["rows_differing"] <= Q // 1000, out["real"]
+    assert out["real"]["counters_equal"] and out["real"]["rings_equal"]
+    gen = torch.Generator(device=qdev.device).manual_seed(3)
+    ints = g._replace(vectors=torch.randint(
+        -4, 5, g.vectors.shape, generator=gen, device=qdev.device).float())
+    ints.vectors[g.sentinel] = 0
+    qi = torch.randint(-4, 5, qdev.shape, generator=gen,
+                       device=qdev.device).float()
+    out["integer"] = []
+    for e, m in ((40, Metric.L2), (256, Metric.L2), (40, Metric.IP),
+                 (40, Metric.L1)):
+        r = beam_against_loop(ints, qi[:1024] if e > 40 else qi,
+                              seeds[:1024] if e > 40 else seeds, e, m)
+        out["integer"].append(r)
+        assert r["rows_differing"] == 0 and r["score_gap"] == 0.0, r
+        assert r["counters_equal"] and r["rings_equal"] in (True, None), r
+    del ints, qi
+    max_steps = ef + 16
+    ring = SE.ring_width(max_steps, 1)
+    kernel = lambda: BM.beam_level0(  # noqa: E731
+        g, qdev, seeds, ef=ef, max_steps=max_steps, metric=metric, ring=ring)
+    loop = lambda: SE._search_layer_body(  # noqa: E731
+        g, qdev, seeds, 0, level0=True, ef=ef, expand=1, max_steps=max_steps,
+        metric=metric, skip_deleted=True, mask_deleted_results=True)
+    out["ms"], out["nvidia_smi"] = sampled_ms(kernel)
+    out["device_ms"] = device_ms(kernel)
+    out["plain_ms"] = cuda_ms(loop, 3)
+    _, _, hist, hops, _ = kernel()
+    r0, v0 = SE.BEAM_ROWS, SE.BEAM_VECTORS
+    assert SE._count_beam(g, seeds, hist, hops, 1, None) <= max_steps
+    rows, vectors = SE.BEAM_ROWS - r0, SE.BEAM_VECTORS - v0
+    out["least_bytes"] = roofline_graph.beam_bytes(
+        rows, vectors, g.neighbors0.shape[1], g.dim)
+    out["bound_ms"] = roofline_graph.beam_least_ms(
+        rows, vectors, g.neighbors0.shape[1], g.dim)
+    out["bound_by"] = "bytes"
+    out["roofline_pct"] = 100.0 * out["bound_ms"] / out["ms"]
+    out["steps_mean"] = float(hops.float().mean())
+    out["steps_max"] = int(hops.max())
+    # BEAM_LAUNCHES: one kernel launch a search() call; expand 2 and an ef
+    # past BEAM_MAX_EF take the loop
+    for k in BM.BEAM_LAUNCHES:
+        BM.BEAM_LAUNCHES[k] = 0
+    for _ in range(3):
+        idx.search_device(qdev, k=10, ef_search=ef)
+    idx.search_device(qdev[:256], k=10, ef_search=ef, expand=2)
+    idx.search_device(qdev[:256], k=10, ef_search=BM.BEAM_MAX_EF + 1)
+    torch.cuda.synchronize()
+    out["launches"] = dict(BM.BEAM_LAUNCHES)
+    assert out["launches"] == {"kernel": 3, "loop": 2, "plain": 0}, \
+        out["launches"]
+    out["card"] = card
+    print(f"beam at the sift1m-graph.bulk shape: {json.dumps(out)}",
+          flush=True)
+    return out
 
 
 def block_graph_routed(base: np.ndarray, queries: np.ndarray, gt, card: str,
@@ -3523,11 +3657,15 @@ def mesh_build_phase(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
           flush=True)
     sgt = FlatIndex(sub, Metric.L2, device=dev).search(qdev, k=10,
                                                        exact=True)[1]
-    _, ids = lock.search(queries, k=10, ef_search=64)
+    d, ids = lock.search(queries, k=10, ef_search=64)
     out["recall"] = recall_at_k(ids, sgt, 10)
-    _, sids = lock.sharded().search(queries, k=10, ef_search=64)
+    sd, sids = lock.sharded().search(queries, k=10, ef_search=64)
     out["sharded_recall"] = recall_at_k(sids, sgt, 10)
-    assert np.array_equal(sids, ids), "sharded() ids differ from search"
+    # search() runs each partition's level-0 beam in the beam kernel,
+    # sharded() in the torch loop: one function but for the f32 sum order
+    # of the scores (d terms), so ids may part at near-ties
+    out["sharded_tie_rows"] = same_up_to_ties(
+        d, ids, sd, sids, rtol=DIM * float(np.finfo(np.float32).eps))
     t0 = time.perf_counter()
     PartitionedHnswIndex(cfg, MESH_P, router="hash", engine="graph",
                          device=dev).build(sub)
@@ -3535,7 +3673,8 @@ def mesh_build_phase(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
     out["sequential_bulk_s"] = time.perf_counter() - t0
     print(f"lockstep partitions: recall@10 {out['recall']:.4f} at "
           f"ef_search 64 (search), {out['sharded_recall']:.4f} (sharded(), "
-          f"equal ids); the sequential bulk build of the same partitions "
+          f"ids equal but for near-ties in {out['sharded_tie_rows']} rows); "
+          f"the sequential bulk build of the same partitions "
           f"{out['sequential_bulk_s']:.3f} s [{card}]", flush=True)
     del lock
     torch.cuda.empty_cache()
@@ -3655,8 +3794,8 @@ class HostData:
 
 
 def main() -> None:
-    if sys.argv[1:] not in ([], ["config_e"], ["route"]):
-        raise SystemExit("usage: python3 chip_smoke.py [config_e|route]")
+    if sys.argv[1:] not in ([], ["config_e"], ["route"], ["beam"]):
+        raise SystemExit("usage: python3 chip_smoke.py [config_e|route|beam]")
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script needs a GPU")
     if sys.argv[1:] == ["config_e"]:
@@ -3664,6 +3803,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["route"]:
         run_route()
+        return
+    if sys.argv[1:] == ["beam"]:
+        run_beam()
         return
     with HostData() as host:
         run(host)
@@ -3693,6 +3835,27 @@ def run_route() -> None:
     with phase("route"):
         out = route_phase(card, torch.device("cuda"))
     print(json.dumps({"route": out, "phase_s": PHASE_S}), flush=True)
+    print(card, flush=True)
+
+
+def run_beam() -> None:
+    """The beam kernel's phase alone: its build, the 1M x 128 rows, the
+    bulk-built graph at the graph cell's configuration."""
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    with phase("kernel builds"):
+        build_phase((BM.NAME,))
+    with phase("1M x 128 data"):
+        base, queries = synthetic_clustered(N, DIM, n_queries=NQ,
+                                            seed=DATA_SEED)
+    dev = torch.device("cuda")
+    with phase("graph build"):
+        idx = HnswIndex(HnswConfig(dim=DIM, m=16, ef_construction=64,
+                                   seed=0), device=dev).build(
+            torch.from_numpy(base).to(dev))
+    with phase("beam"):
+        out = beam_phase(idx, torch.from_numpy(queries).to(dev), card)
+    print(json.dumps({"beam": out, "phase_s": PHASE_S}), flush=True)
     print(card, flush=True)
 
 
@@ -3769,6 +3932,8 @@ def run(host: HostData) -> None:
     with phase("graph"):
         graph, gidx, gkw, gbreak = graph_phase(base, queries, gt, card, dev)
         breakdowns.append(gbreak)
+    with phase("beam"):
+        beam = beam_phase(gidx, torch.from_numpy(queries).to(dev), card)
     with phase("graph-routed block"):
         reset_expand_counts()
         routed = block_graph_routed(base, queries, gt, card, dev)
@@ -3859,7 +4024,7 @@ def run(host: HostData) -> None:
                       "profile_ranges": ranges, "data_files": files,
                       "cli": cli, "bench_s": bench["s"], "planner": plan,
                       "route": route, "route_launches": route_paths,
-                      "graph": graph, "ivf": ivf, "partition_modes": modes,
+                      "graph": graph, "beam": beam, "ivf": ivf, "partition_modes": modes,
                       "config_d": cfg_d, "config_e": cfg_e,
                       "mesh_build": mesh,
                       "sparse": sparse["numbers"],
@@ -3959,6 +4124,19 @@ def run(host: HostData) -> None:
                     f"b={at['centroids']} d={at['d']} p={at['p']}; ms: CUDA "
                     "events over back-to-back calls",
     } for at in route], {
+        "name": "beam_level0", "route": "cuda",
+        "source": "tpu_hnsw_torch/csrc/beam_search.cu (beam_level0_launch: "
+                  "beam_kernel)",
+        "replaces": "the lax.while_loop of tpu_hnsw/index/search.py:243 "
+                    "(_search_layer_body); no Pallas kernel",
+        "launches_by_path": {"graph_1Mx128": beam["launches"]},
+        "ms": beam["ms"], "device_ms": beam["device_ms"],
+        "plain_ms": beam["plain_ms"], "bound_ms": beam["bound_ms"],
+        "bound_by": beam["bound_by"], "library_ms": None,
+        "timed_at": "the 1M x 128 bulk-built graph, m 16, Q=4096, ef 40, "
+                    "route-scan seeds; ms: CUDA events over back-to-back "
+                    "calls; plain_ms: the torch loop",
+    }, {
         "name": "hamming_scan", "route": "cuda",
         "source": "tpu_hnsw_torch/csrc/hamming_scan.cu",
         "replaces": "tpu_hnsw/ops/pallas_hamming.py:52",

@@ -37,6 +37,7 @@ import torch
 
 from tpu_hnsw_torch.config import Metric
 from tpu_hnsw_torch.index import graph as G
+from tpu_hnsw_torch.ops import beam as B
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.utils.profiling import annotate, tracing
@@ -44,7 +45,9 @@ from tpu_hnsw_torch.utils.profiling import annotate, tracing
 #: steps between two termination tests of the lockstep loop (each a sync)
 CHECK_EVERY = 4
 
-#: level-0 beam steps run so far (every query moves one step in lockstep)
+#: level-0 beam steps run so far: the loop's lockstep steps; on the kernel
+#: path (``ops/beam.py``) a request's longest beam, read only under an open
+#: trace (:func:`_count_beam`)
 BEAM_STEPS = 0
 #: termination tests of the level-0 beam that read the device (host syncs)
 BEAM_SYNCS = 0
@@ -81,6 +84,12 @@ def init_pool(g: G.HnswGraph, q: torch.Tensor, init_ids: torch.Tensor,
     return pool_d, torch.gather(init_ids, 1, sel)
 
 
+def ring_width(max_steps: int, expand: int, hist_window: int = 64) -> int:
+    """Slots of a beam's history ring: ``hist_window``, at most the ids
+    ``max_steps`` steps of ``expand`` expand, at least one step's."""
+    return max(min(hist_window, max_steps * expand), expand)
+
+
 def _search_layer_body(g: G.HnswGraph, q: torch.Tensor, init_ids, level: int,
                        *, level0: bool, ef: int, expand: int, max_steps: int,
                        metric: Metric, skip_deleted: bool,
@@ -108,7 +117,7 @@ def _search_layer_body(g: G.HnswGraph, q: torch.Tensor, init_ids, level: int,
     sent = g.sentinel
     Q = q.shape[0]
     dev = q.device
-    H = max(min(hist_window, max_steps * E), E)
+    H = ring_width(max_steps, E, hist_window)
     hist_slots = max(H // E, 1)
 
     if init_state is not None:
@@ -267,6 +276,8 @@ def search_resumable_start(g: G.HnswGraph, queries: torch.Tensor, entry: int,
     q = queries.to(g.vectors.dtype)
     seeds = _descend_body(g, q, entry, entry_level, 0, metric,
                           descent_ef=descent_ef)
+    B.BEAM_LAUNCHES[B.path(g, q, expand=expand, ef=ef, metric=metric,
+                           resumable=True)] += 1
     return _search_layer_body(
         g, q, seeds, 0, level0=True, ef=ef, expand=expand,
         max_steps=max_steps, metric=metric, skip_deleted=True,
@@ -282,6 +293,8 @@ def search_resume(g: G.HnswGraph, queries: torch.Tensor, state, *, ef: int,
     if max_steps <= 0:
         max_steps = ef // max(expand, 1) + 16
     q = queries.to(g.vectors.dtype)
+    B.BEAM_LAUNCHES[B.path(g, q, expand=expand, ef=ef, metric=metric,
+                           resumable=True)] += 1
     return _search_layer_body(
         g, q, None, 0, level0=True, ef=ef, expand=expand,
         max_steps=max_steps, metric=metric, skip_deleted=True,
@@ -316,30 +329,37 @@ def scan_seeds(g: G.HnswGraph, q: torch.Tensor, upper_ids: torch.Tensor, *,
 
 
 def _count_beam(g: G.HnswGraph, seeds: torch.Tensor, hist: torch.Tensor,
-                steps: int, E: int, allowed) -> None:
+                steps, E: int, allowed) -> int:
     """Adds one level-0 beam's least work to :data:`BEAM_ROWS` and
     :data:`BEAM_VECTORS` (one host read): the adjacency rows of the nodes
     it expanded, and the distinct vectors of the seeds and of those rows'
     neighbours that it may score. Read off the history ring, which holds
-    every expanded id (a sentinel where a query was idle) as long as it
-    has not wrapped; a beam whose ring wrapped is not counted."""
+    every expanded id (the sentinel where a query did not step) as long as
+    it has not wrapped; a beam whose ring wrapped is not counted. ``steps``
+    is the loop's step count, or the kernel's steps ``[Q]`` a query, whose
+    longest is read in the same host read. Returns the beam's steps."""
     global BEAM_ROWS, BEAM_VECTORS, BEAM_COUNTED
-    if steps > hist.shape[1] // E:
-        return
+    slots = hist.shape[1] // E
+    if isinstance(steps, int) and steps > slots:
+        return steps
     sent = g.sentinel
-    done = hist[:, :steps * E]
-    nbrs = g.neighbors0[done].reshape(done.shape[0], -1)
+    nbrs = g.neighbors0[hist].reshape(hist.shape[0], -1)
     skip = g.deleted[nbrs]
     if allowed is not None:
         skip |= ~allowed[nbrs]
     ids = torch.cat([seeds, torch.where(skip, sent, nbrs)], 1).sort(1)[0]
     new = torch.ones_like(ids, dtype=torch.bool)
     new[:, 1:] = ids[:, 1:] != ids[:, :-1]
-    rows, vectors = torch.stack([(done != sent).sum(),
-                                 (new & (ids != sent)).sum()]).tolist()
-    BEAM_ROWS += rows
-    BEAM_VECTORS += vectors
-    BEAM_COUNTED += 1
+    reads = [(hist != sent).sum(), (new & (ids != sent)).sum()]
+    if not isinstance(steps, int):
+        reads.append(steps.max().to(torch.int64))
+    rows, vectors, *longest = torch.stack(reads).tolist()
+    steps = longest[0] if longest else steps
+    if steps <= slots:
+        BEAM_ROWS += rows
+        BEAM_VECTORS += vectors
+        BEAM_COUNTED += 1
+    return steps
 
 
 def search(g: G.HnswGraph, queries: torch.Tensor, *, entry: int,
@@ -350,7 +370,9 @@ def search(g: G.HnswGraph, queries: torch.Tensor, *, entry: int,
     (greedy descent, or the dense scan of the level >= 1 subset when
     ``upper_ids`` is given) then the ef_search-bounded level-0 beam.
     Returns (scores ``[Q, k]`` ascending, ids ``[Q, k]``), plus per-query
-    (hops, dist_evals) with ``with_counters``."""
+    (hops, dist_evals) with ``with_counters``. The level-0 beam takes the
+    path :func:`~tpu_hnsw_torch.ops.beam.path` picks."""
+    global BEAM_STEPS
     ef = max(ef_search, k)
     if max_steps <= 0:
         # natural termination lands near ef/expand steps; the margin covers
@@ -367,21 +389,32 @@ def search(g: G.HnswGraph, queries: torch.Tensor, *, entry: int,
             seeds = _descend_body(g, q, entry, entry_level, 0, metric,
                                   descent_ef=descent_ef)
     counting, steps0 = tracing(), BEAM_STEPS
+    path = B.path(g, q, expand=expand, ef=ef, metric=metric)
     with annotate("beam_level0", nq):
-        out = _search_layer_body(g, q, seeds, 0, level0=True, ef=ef,
-                                 expand=expand, max_steps=max_steps,
-                                 metric=metric, skip_deleted=True,
-                                 mask_deleted_results=True,
-                                 with_counters=with_counters,
-                                 return_state=counting, allowed=allowed)
-    if counting:  # after the beam's range, which keeps its device time
-        pool_d, pool_i, state = out
-        _count_beam(g, seeds, state[3], BEAM_STEPS - steps0,
-                    min(expand, ef), allowed)
-        out = (pool_d, pool_i, *state[4:]) if with_counters \
-            else (pool_d, pool_i)
+        if path == "kernel":
+            pool_d, pool_i, hist, hops, evals = B.beam_level0(
+                g, q, seeds, ef=ef, max_steps=max_steps, metric=metric,
+                ring=ring_width(max_steps, 1), allowed=allowed)
+        else:
+            B.BEAM_LAUNCHES[path] += 1
+            out = _search_layer_body(g, q, seeds, 0, level0=True, ef=ef,
+                                     expand=expand, max_steps=max_steps,
+                                     metric=metric, skip_deleted=True,
+                                     mask_deleted_results=True,
+                                     with_counters=with_counters,
+                                     return_state=counting, allowed=allowed)
+            if counting:
+                pool_d, pool_i, (_, _, _, hist, hops, evals) = out
+            elif with_counters:
+                pool_d, pool_i, hops, evals = out
+            else:
+                pool_d, pool_i = out
+    # after the beam's range, which keeps its device time
+    if counting and path == "kernel":
+        BEAM_STEPS += _count_beam(g, seeds, hist, hops, 1, allowed)
+    elif counting:
+        _count_beam(g, seeds, hist, BEAM_STEPS - steps0, min(expand, ef),
+                    allowed)
     if with_counters:
-        pool_d, pool_i, hops, evals = out
         return pool_d[:, :k], pool_i[:, :k], hops, evals
-    pool_d, pool_i = out
     return pool_d[:, :k], pool_i[:, :k]

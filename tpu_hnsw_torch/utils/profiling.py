@@ -21,15 +21,18 @@ brackets):
   ``HnswIndex.search_device``, and inside it ``queries`` (queries:
   validation and the upload), then ``route_scan`` (queries: the dense
   scan of the level >= 1 elements) or ``descend`` (queries: the greedy
-  upper-level descent), and ``beam_level0`` (queries: the lockstep
-  level-0 beam). ``index/search.py`` counts the level-0 beam's work in
-  module ints: always ``BEAM_STEPS`` (lockstep steps run) and
-  ``BEAM_SYNCS`` (termination tests that read the device); and, only
-  while a :func:`trace` is open (:func:`tracing`), with one host read
-  after ``beam_level0`` closes, the beam's least work: ``BEAM_ROWS``
-  ((query, expanded node) adjacency rows), ``BEAM_VECTORS`` (distinct
-  vectors the seeds and those rows name) and ``BEAM_COUNTED`` (beams so
-  counted).
+  upper-level descent), and ``beam_level0`` (queries: the level-0 beam:
+  one kernel launch, or the lockstep torch loop; ``ops/beam.py``'s
+  ``BEAM_LAUNCHES`` counts the beams by path, ``"kernel"``, ``"loop"``,
+  ``"plain"``). ``index/search.py`` counts the level-0 beam's work in
+  module ints: on the loop, always, ``BEAM_STEPS`` (lockstep steps run)
+  and ``BEAM_SYNCS`` (termination tests that read the device; the kernel
+  has none); and, only while a :func:`trace` is open (:func:`tracing`),
+  with one host read after ``beam_level0`` closes, the beam's least
+  work: ``BEAM_ROWS`` ((query, expanded node) adjacency rows),
+  ``BEAM_VECTORS`` (distinct vectors the seeds and those rows name) and
+  ``BEAM_COUNTED`` (beams so counted), and on the kernel ``BEAM_STEPS``
+  (its longest query's steps, read in that host read).
 
 Two things record them:
 
