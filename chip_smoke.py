@@ -229,7 +229,7 @@ from tpu_hnsw_torch import (BinaryFlatIndex, BinaryHnswIndex, BlockHnswIndex,
 from tpu_hnsw_torch import bench as BN
 from tpu_hnsw_torch import planner as PL
 from tpu_hnsw_torch.index.block import (_make_score_copy, _pad_cols,
-                                        _quantize_rows, _route_exact)
+                                        _quantize_rows)
 from tpu_hnsw_torch.index import flat as FL
 from tpu_hnsw_torch.index import search as SE
 from tpu_hnsw_torch.index.build_cluster import build_bulk
@@ -251,6 +251,7 @@ from tpu_hnsw_torch.utils.evalharness import measure_qps
 from tpu_hnsw_torch.utils.recall import recall_at_k
 
 from hnswbench import roofline_graph
+from hnswbench.roofline import bound, expand_bound
 
 N, DIM, NQ, DATA_SEED = 1_000_000, 128, 4096, 42
 BLOCK = 256
@@ -265,8 +266,6 @@ KERNEL_Q = 1024
 RTOL = {"int8": 1e-6, "float32": 1e-5, "bfloat16": 1e-3}
 BIN_DIM = 1536             # dbpedia-entities-openai-1M's width, in bits
 RAGGED_Q = 76              # a query count that ends in a partly filled tile
-HBM_BPS = 3.35e12          # H100 SXM data sheet
-PEAK_OPS = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
 FILTER_SEED, FILTER_SHARE = BN.FILTER_SEED, BN.FILTER_SHARE
 N_ADD = 10_000
 
@@ -277,13 +276,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
-
-
-def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
-    """(least ms, what bounds it) for a call moving ``nbytes`` and doing
-    ``ops`` operations of ``dtype``."""
-    b, o = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[dtype] * 1e3
-    return (b, "bytes") if b >= o else (o, "operations")
 
 
 class Sampler:
@@ -441,8 +433,9 @@ def expand_variant(args, kw, dtype, metric, card, cscale, shape) -> dict:
     Q, p = bids.shape
     S, dp, es = bl.shape[1], bl.shape[2], bl.element_size()
     rec["kernel_GBps"] = Q * p * S * dp * es / rec["ms"] / 1e6
-    rec["bound_ms"], rec["bound_by"] = expand_bound(bl, bids, kw,
-                                                    4 * Q * p * S)
+    rec["bound_ms"], rec["bound_by"] = expand_bound(
+        bl.shape, bl.dtype, bids, scaled="score_scale" in kw,
+        filtered="allowed" in kw, out_bytes=4 * Q * p * S)
     print(f"kernel {dtype} {metric.value} p={shape['p']} d={shape['d']}"
           f"{' masked' if rec['masked'] else ''}: {rec['ms']:.4f} ms "
           f"(plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
@@ -451,22 +444,6 @@ def expand_variant(args, kw, dtype, metric, card, cscale, shape) -> dict:
           f"rel {rel:.3g} [{card}]", flush=True)
     assert rel <= RTOL[dtype], rec
     return rec
-
-
-def expand_bound(bl, bids, kw, out_bytes: int) -> tuple[float, str]:
-    """Either entry: each distinct probed block's rows, norms and ids (and
-    scale, mask) read once, the queries and bids once, the output written
-    once; 2 Q p S d operations of the rows' type."""
-    Q, p = bids.shape
-    S, dp, es = bl.shape[1], bl.shape[2], bl.element_size()
-    per_block = S * dp * es + 8 * S + 4 * ("score_scale" in kw) \
-        + S * ("allowed" in kw)
-    nbytes = (torch.unique(bids[(bids >= 0) & (bids < bl.shape[0])]).numel()
-              * per_block + Q * dp * es + 4 * Q * (1 + ("q_scale" in kw))
-              + 8 * Q * p + out_bytes)
-    dtype = {torch.int8: "int8", torch.bfloat16: "bfloat16"}.get(
-        bl.dtype, "float32")
-    return bound(nbytes, 2 * Q * p * S * dp, dtype)
 
 
 def topr_check(args, kw, dtype: str, r: int, plain, cscale: float) -> dict:
@@ -603,9 +580,11 @@ def stage1_timing(args, kw, r: int, card: str, what: str) -> dict:
            "plain_fused_ms": cuda_ms(
                lambda: X.expand_topr_reference(*args, r, **kw), 3, 1)}
     rec["all_bound_ms"], rec["all_bound_by"] = expand_bound(
-        bl, bids, kw, 4 * Q * p * S)
+        bl.shape, bl.dtype, bids, scaled="score_scale" in kw,
+        filtered="allowed" in kw, out_bytes=4 * Q * p * S)
     rec["fused_bound_ms"], rec["fused_bound_by"] = expand_bound(
-        bl, bids, kw, 8 * Q * r)
+        bl.shape, bl.dtype, bids, scaled="score_scale" in kw,
+        filtered="allowed" in kw, out_bytes=8 * Q * r)
     grouped = ("n/a (keys over the merge)" if rec["grouped_ms"] is None
                else f"{rec['grouped_ms']:.4f}")
     print(f"stage 1 {what}: {rec['dtype']} Q={Q} p={p} d={rec['d']} r={r}, "
@@ -751,13 +730,14 @@ def chosen_route(bl, bids, r: int) -> str:
 
 
 def routed_args(idx, q, probes: int):
-    """Stage 1's arguments as _serve_exact makes them: the bids the index's
-    own routing gives these queries at ``probes``, on its scoring copy."""
+    """Stage 1's arguments as the exact-routed search makes them: the bids
+    the index's own route gives these queries at ``probes``, on its
+    scoring copy."""
     q = idx._queries(q)
     q_sq = (q * q).sum(1)
     metric = idx.cfg.metric
-    bids = _route_exact(idx.centroids, idx.centroids_sq, q, q_sq, p=probes,
-                        metric=metric)
+    bids = R.route_topk(idx.centroids, idx.centroids_sq, q, q_sq, probes,
+                        metric)[:, 0]
     qp = _pad_cols(q, idx.blocks_score.shape[2])
     kw = {}
     if idx.score_scale is not None:

@@ -264,7 +264,7 @@ def test_expand_blocks_2stage_ties_match_jax(metric, masked, monkeypatch):
     from tpu_hnsw.config import Metric as JMetric
     from tpu_hnsw.index.block import _expand_blocks_2stage_body
     from tpu_hnsw.ops import topk as JT
-    from tpu_hnsw_torch.index.block import _expand_blocks_2stage
+    from tpu_hnsw_torch.index.block import Stored, _expand_step
 
     st = _tie_state()
     B, S, d = st["x"].shape
@@ -283,12 +283,13 @@ def test_expand_blocks_2stage_ties_match_jax(metric, masked, monkeypatch):
 
     jv, ji = reference()
     t = torch.from_numpy
-    v, i = _expand_blocks_2stage(
-        t(st["blocks8"]), t(st["blocks_sq"]), t(st["block_ids"]),
-        t(st["x"].reshape(-1, d)), t(st["q"]), t(st["q_sq"]),
-        t(st["bids"]), k=k, rerank=rerank, metric=Metric(metric),
-        score_scale=torch.ones(B), allowed=None if allowed is None
-        else t(allowed))
+    stored = Stored(t(st["x"]), t(st["blocks8"]), t(st["blocks_sq"]),
+                    t(st["block_ids"]), torch.ones(B), two_stage=True,
+                    rerank=rerank)
+    v, i = _expand_step(
+        stored, t(st["q"]), t(st["q_sq"]), t(st["bids"]), k=k,
+        metric=Metric(metric),
+        allowed=None if allowed is None else t(allowed))
     v, i = v.numpy(), i.numpy()
     np.testing.assert_array_equal(v, jv)
     kth = v[:, -1:]

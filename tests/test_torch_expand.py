@@ -17,6 +17,7 @@ import torch
 
 from tpu_hnsw_torch.config import Metric
 from tpu_hnsw_torch.index.block import _quantize_rows
+from tpu_hnsw_torch.ops import _nvcc
 from tpu_hnsw_torch.ops import expand as X
 from tpu_hnsw_torch.ops import topk as T
 
@@ -394,6 +395,24 @@ def test_row_info_alignment_matches_the_copy_width(S, misfits):
                 X._check_row_info_aligned("expand_topr", S, *ops)
         else:
             X._check_row_info_aligned("expand_topr", S, *ops)
+
+
+@pytest.mark.parametrize("refusal,error", [
+    ("dtype", TypeError), ("shape", ValueError), ("device", ValueError),
+    ("contiguous", ValueError)])
+def test_operand_check_refuses_each_mismatch(refusal, error):
+    """``_nvcc.check``, which every kernel wrapper runs on its operands
+    before a launch: a fitting operand passes; a wrong dtype, a wrong
+    shape, another device or a strided view raises, naming the operand."""
+    cpu = torch.device("cpu")
+    t = torch.zeros((4, 6), dtype=torch.float32)
+    _nvcc.check("rows", t, torch.float32, (4, 6), cpu)
+    args = {"dtype": (t, torch.int32, (4, 6), cpu),
+            "shape": (t, torch.float32, (4, 5), cpu),
+            "device": (t, torch.float32, (4, 6), torch.device("cuda", 0)),
+            "contiguous": (t.T, torch.float32, (6, 4), cpu)}[refusal]
+    with pytest.raises(error, match="rows"):
+        _nvcc.check("rows", *args)
 
 
 @pytest.mark.parametrize("P,Q,C", [(1, 1, 1), (8192, 1024, 320),

@@ -1,7 +1,8 @@
 """The span recorder of ``tpu_hnsw_torch/utils/profiling.py`` on the CPU:
-the span trees of a ``BlockHnswIndex`` search, a ``ShardedBlockSearcher``
-search and a block build (names, parents, roots, work counts, children
-inside their parents); results bit-identical with a sink open and closed;
+the span trees of a ``BlockHnswIndex`` search (exact and graph-routed),
+a ``ShardedBlockSearcher`` search and a block build (names, parents,
+roots, work counts, children inside their parents); results
+bit-identical with a sink open and closed;
 no sink, no record and the shared no-op; and, under ``trace()`` and
 ``record()`` together, each span within 1 ms of its ``record_function``
 range on the exported trace's clock. ``test_expand_range_on_card``
@@ -95,6 +96,28 @@ def test_stacked_search_span_tree(stacked, data):
     L = stacked.blocks.shape[0]
     assert by["search"][0].work == by["ici_merge"][0].work == len(q)
     assert by["stage1"][0].work == len(q) * L * 2
+
+
+def test_graph_routed_search_records_route_and_expand(data):
+    """Graph routing records the request's spans as the exact route does:
+    ``route`` (the centroid graph's own search inside it) and ``expand``
+    (with ``stage1`` and ``rerank``) under ``search``, each counting the
+    queries."""
+    idx = BlockHnswIndex(HnswConfig(dim=DIM), block_size=BLOCK,
+                         routing="graph", device="cpu").build(data[0])
+    q = data[1]
+    with profiling.record() as rec:
+        idx.search_device(q, k=K, probes=PROBES)
+    spans = rec.spans
+    by = _tree(spans)
+    assert spans[0].name == "search" and spans[0].parent < 0
+    assert sorted(s.name for s in spans if s.parent == 0) == [
+        "expand", "queries", "route"]
+    expand = spans.index(by["expand"][0])
+    assert sorted(s.name for s in spans if s.parent == expand) == [
+        "rerank", "stage1"]
+    for name in ("route", "expand"):
+        assert [s.work for s in by[name]] == [len(q)]
 
 
 def test_build_span_tree_keeps_build_stats(data):

@@ -29,6 +29,7 @@ import json
 import math
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,6 +48,8 @@ from tpu_hnsw_torch.utils.profiling import annotate
 
 #: the kernel loads 16 bytes at a time; scoring-copy rows are padded to it
 ROW_ALIGN_BYTES = 16
+#: stage-1 candidate rows per unit of ef_search (block.py:810-815)
+ROWS_PER_EF = 64
 # elements of a corpus-sized f32 temporary per step of the install-time
 # passes (norms, centroid sums, normalisation): 2^28 f32 is 1 GB
 _CHUNK_ELEMS = 1 << 28
@@ -104,29 +107,35 @@ def _stage1(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
         blocks, blocks_sq, block_ids, q, q_sq, bids, metric, **kw), r)
 
 
-def _expand_blocks(blocks, blocks_sq, block_ids, q, q_sq, bids, *, k: int,
-                   metric: Metric, allowed=None):
-    """Single-stage expansion (block.py:106-145): score every row of each
-    query's selected blocks from the stored blocks, return the top-k as
-    (scores ``[Q, k]`` ascending, ids ``[Q, k]``, -1 padded). ``allowed``
-    ``[B, S]`` bool masks filtered-out rows like dead ones."""
-    S = blocks.shape[1]
-    vals, sel = _stage1(blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
-                        k, allowed=allowed)
-    ids = block_ids.reshape(-1)[_slots_of(bids, sel, S)]
-    return vals, torch.where(torch.isfinite(vals), ids, -1)
+class Stored(NamedTuple):
+    """What one expansion step reads (:func:`_expand_step`): the exact
+    blocks ``[B, S, d]``, the scoring copy ``[B, S, dp]`` (int8 with its
+    per-block ``scale [B]`` f32, or bf16 with scale None), the rows'
+    squared norms ``[B, S]`` f32 and ids ``[B, S]`` int32 (-1 dead/pad),
+    whether stage 1 scores the copy and an f32 rerank follows
+    (``two_stage``), and the rerank width (at least k is kept)."""
+    blocks: torch.Tensor
+    score: torch.Tensor
+    sq: torch.Tensor
+    ids: torch.Tensor
+    scale: torch.Tensor | None
+    two_stage: bool
+    rerank: int
 
 
-def _expand_blocks_2stage(blocks_score, blocks_sq, block_ids, flat_exact, q,
-                          q_sq, bids, *, k: int, rerank: int, metric: Metric,
-                          score_scale=None, allowed=None):
-    """Two-stage expansion (block.py:153-237): the kernel scores the
-    selected blocks from the int8 (``score_scale`` given) or bf16 copy and
-    keeps the best ``rerank`` rows per query, which are re-scored exactly
-    in f32 from ``flat_exact [B*S, d]``, and the top-k is returned.
-    ``allowed`` masks stage 1 in the kernel and stage 2 again: when fewer
-    than ``rerank`` allowed rows exist, top-r still hands back disallowed
-    positions.
+def _expand_step(st: Stored, q, q_sq, bids, *, k: int, metric: Metric,
+                 allowed=None):
+    """Expand each query's selected blocks ``bids [Q, p]`` (block.py:
+    106-237): (raw scores ``[Q, k]`` ascending, ids ``[Q, k]``, -1 padded).
+    ``allowed`` ``[B, S]`` bool masks filtered-out rows like dead ones.
+
+    Two-stage: the kernel scores the selected blocks from the scoring copy
+    and keeps the best ``r = max(rerank, k)`` rows per query, which are
+    re-scored exactly in f32 from the stored blocks, and the top-k is
+    returned; ``allowed`` masks stage 1 in the kernel and the rerank
+    again, since when fewer than r allowed rows exist top-r still hands
+    back disallowed positions. Single-stage: the kernel scores the stored
+    blocks and keeps the top-k.
 
     Stage 1 (the kernel) and the rerank (gather, exact scores, top-k) are
     regions of their own; the query's padding and quantisation before them
@@ -134,20 +143,25 @@ def _expand_blocks_2stage(blocks_score, blocks_sq, block_ids, flat_exact, q,
     its device extent from the kernels launched directly in it, so these
     keep the caller's ``expand`` range around both regions' kernels."""
     nq, p = bids.shape
-    S, dp = blocks_score.shape[1], blocks_score.shape[2]
-    r = min(rerank, p * S)
-    qp = _pad_cols(q, dp)  # zero columns change neither dots nor norms
+    S = st.ids.shape[1]
+    if not st.two_stage:
+        vals, sel = _stage1(st.blocks, st.sq, st.ids, q, q_sq, bids, metric,
+                            k, allowed=allowed)
+        ids = st.ids.reshape(-1)[_slots_of(bids, sel, S)]
+        return vals, torch.where(torch.isfinite(vals), ids, -1)
+    r = min(max(st.rerank, k), p * S)
+    qp = _pad_cols(q, st.score.shape[2])  # zero columns: the same dots
     kw = {"allowed": allowed}
-    if score_scale is not None:
+    if st.scale is not None:
         q8, q_scl = _quantize_rows(qp)
-        kw.update(q8=q8, q_scale=q_scl, score_scale=score_scale)
+        kw.update(q8=q8, q_scale=q_scl, score_scale=st.scale)
     with annotate("stage1", nq * p):
-        _, sel = _stage1(blocks_score, blocks_sq, block_ids, qp, q_sq, bids,
-                         metric, r, **kw)
+        _, sel = _stage1(st.score, st.sq, st.ids, qp, q_sq, bids, metric, r,
+                         **kw)
     with annotate("rerank", nq * r):
         slots = _slots_of(bids, sel, S)
-        cand_ids = block_ids.reshape(-1)[slots]
-        v = flat_exact[slots].float()                     # [Q, r, d]
+        cand_ids = st.ids.reshape(-1)[slots]
+        v = st.blocks.reshape(-1, st.blocks.shape[-1])[slots].float()
         dots2 = (v @ q[:, :, None])[..., 0]
         if metric is Metric.L2:
             vsq = (v * v).sum(-1)
@@ -164,10 +178,14 @@ def _expand_blocks_2stage(blocks_score, blocks_sq, block_ids, flat_exact, q,
     return vals, torch.where(torch.isfinite(vals), ids, -1)
 
 
-def _route_exact(centroids, c_sq, q, q_sq, *, p: int, metric: Metric):
-    """Exact top-p blocks per query (block.py:287-306): ``[Q, p]`` ids,
-    ascending by (score, block), from ``ops/route.py::route_topk``."""
-    return R.route_topk(centroids, c_sq, q, q_sq, p, metric)[:, 0]
+def probes_for_ef(ef_search: int, block_size: int, block_slack: float,
+                  most: int) -> int:
+    """Map the ef_search GUC onto a block-probe count (block.py:810-815,
+    partition.py:1266-1277): ``ROWS_PER_EF`` scanned rows per unit of ef,
+    compensated for block slack, clamped to ``[1, most]``."""
+    p = math.ceil(ROWS_PER_EF * ef_search / block_size)
+    p += int((block_slack - 1) * p + 0.5)
+    return max(1, min(p, most))
 
 
 def _route_exact_sorted(centroids, c_sq, q, q_sq, *, p: int, metric: Metric):
@@ -199,28 +217,6 @@ def _scan_tail(tail, tail_sq, tail_ids, q, q_sq, allowed_tail=None, *,
         vals = F.pad(vals, (0, k - kk), value=torch.inf)
         ids = F.pad(ids, (0, k - kk), value=-1)
     return vals, ids
-
-
-def _serve_exact(blocks, blocks_score, blocks_sq, block_ids, centroids, c_sq,
-                 q, score_scale=None, allowed=None, *, k: int, probes: int,
-                 rerank: int, metric: Metric, two_stage: bool):
-    """The exact-routing serving step (block.py:245-284): query norms ->
-    centroid routing -> block expansion (+ rerank). Raw scores out."""
-    q = q.float()
-    q_sq = D.squared_norms(q)
-    nq = q.shape[0]
-    with annotate("route", nq):
-        bids = _route_exact(centroids, c_sq, q, q_sq, p=probes,
-                            metric=metric)
-    with annotate("expand", nq):
-        if two_stage:
-            return _expand_blocks_2stage(
-                blocks_score, blocks_sq, block_ids,
-                blocks.reshape(-1, blocks.shape[-1]), q, q_sq, bids, k=k,
-                rerank=rerank, metric=metric, score_scale=score_scale,
-                allowed=allowed)
-        return _expand_blocks(blocks, blocks_sq, block_ids, q, q_sq, bids,
-                              k=k, metric=metric, allowed=allowed)
 
 
 # ---------------------------------------------------------------------------
@@ -468,8 +464,6 @@ class BlockHnswIndex:
     # above this block count, probes >= n_blocks streams the whole store
     # once instead of expanding every block for every query
     EXHAUSTIVE_SCAN_MIN_BLOCKS = 2048
-    #: stage-1 candidate rows per unit of ef_search (block.py:810-815)
-    ROWS_PER_EF = 64
 
     def __init__(self, config: HnswConfig, block_size: int = 256,
                  routing: str = "auto", block_slack: float = 1.05,
@@ -555,11 +549,10 @@ class BlockHnswIndex:
         return self.n_blocks > self.EXACT_ROUTING_MAX
 
     def probes_for_ef(self, ef_search: int) -> int:
-        """Map the ef_search GUC onto a block-probe count: ``ROWS_PER_EF``
-        scanned rows per unit of ef, compensated for block slack."""
-        p = math.ceil(self.ROWS_PER_EF * ef_search / self.block_size)
-        p += int((self.block_slack - 1) * p + 0.5)
-        return max(1, min(p, self.n_blocks))
+        """Blocks a query probes for an ef (:func:`probes_for_ef`), at most
+        ``n_blocks``."""
+        return probes_for_ef(ef_search, self.block_size, self.block_slack,
+                             self.n_blocks)
 
     # ----------------------------------------------------------------- build
     def build(self, data, kmeans_iters: int = 10,
@@ -709,6 +702,13 @@ class BlockHnswIndex:
             "centroid_graph_s": round(time.perf_counter() - t0, 3)}
         return self.centroid_index
 
+    @property
+    def _stored(self) -> Stored:
+        """The arrays and serving options :func:`_expand_step` reads."""
+        return Stored(self.blocks, self.blocks_score, self.blocks_sq,
+                      self.block_ids, self.score_scale, self.two_stage,
+                      self.rerank_width)
+
     def _route(self, qt, probes: int, ef_route: int):
         """Each query's ``probes`` blocks through the centroid graph's beam
         (block.py:1133-1144); a missing result repeats block 0, whose
@@ -837,26 +837,19 @@ class BlockHnswIndex:
             if (probes >= self.n_blocks
                     and self.n_blocks > self.EXHAUSTIVE_SCAN_MIN_BLOCKS):
                 sc, ids = self._scan_all(qt, k, allowed_slots)
-            elif not self._use_graph_routing():
-                sc, ids = _serve_exact(
-                    self.blocks, self.blocks_score, self.blocks_sq,
-                    self.block_ids, self.centroids, self.centroids_sq, qt,
-                    self.score_scale, allowed_slots, k=k, probes=probes,
-                    rerank=max(self.rerank_width, k), metric=metric,
-                    two_stage=self.two_stage)
             else:
                 q_sq = D.squared_norms(qt)
-                bids = self._route(qt, probes, max(ef_search, probes))
-                if self.two_stage:
-                    sc, ids = _expand_blocks_2stage(
-                        self.blocks_score, self.blocks_sq, self.block_ids,
-                        self.blocks.reshape(-1, self.cfg.dim), qt, q_sq, bids,
-                        k=k, rerank=max(self.rerank_width, k), metric=metric,
-                        score_scale=self.score_scale, allowed=allowed_slots)
-                else:
-                    sc, ids = _expand_blocks(
-                        self.blocks, self.blocks_sq, self.block_ids, qt, q_sq,
-                        bids, k=k, metric=metric, allowed=allowed_slots)
+                nq = qt.shape[0]
+                with annotate("route", nq):
+                    if self._use_graph_routing():
+                        bids = self._route(qt, probes, max(ef_search, probes))
+                    else:  # block.py:287-306
+                        bids = R.route_topk(self.centroids, self.centroids_sq,
+                                            qt, q_sq, probes, metric)[:, 0]
+                with annotate("expand", nq):
+                    sc, ids = _expand_step(self._stored, qt, q_sq, bids, k=k,
+                                           metric=metric,
+                                           allowed=allowed_slots)
             if self.tail_n:
                 t_sc, t_ids = self._tail_scores(qt, D.squared_norms(qt), k,
                                                 allowed_tail)
@@ -952,17 +945,8 @@ class BlockHnswIndex:
         while True:
             lo = 0 if filtered else p_prev
             bids = bids_full[:, lo:p].contiguous()
-            kk = min(W, (p - lo) * S)
-            if self.two_stage:
-                sc, ids = _expand_blocks_2stage(
-                    self.blocks_score, self.blocks_sq, self.block_ids,
-                    self.blocks.reshape(-1, self.cfg.dim), qt, q_sq, bids,
-                    k=kk, rerank=max(self.rerank_width, kk), metric=metric,
-                    score_scale=self.score_scale)
-            else:
-                sc, ids = _expand_blocks(
-                    self.blocks, self.blocks_sq, self.block_ids, qt, q_sq,
-                    bids, k=kk, metric=metric)
+            sc, ids = _expand_step(self._stored, qt, q_sq, bids,
+                                   k=min(W, (p - lo) * S), metric=metric)
             if filtered:  # fresh pool: the prefix was re-expanded in full
                 acc_d, acc_i = tail_pool(W)
             acc_d = np.concatenate([acc_d, sc.cpu().numpy()], axis=1)

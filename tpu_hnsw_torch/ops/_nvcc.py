@@ -1,9 +1,11 @@
-"""Build and load the port's CUDA kernel libraries.
+"""Build, load and launch the port's CUDA kernel libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` at first use into ``tpu_hnsw_torch/_build/
 <name>-<hash>.so``, where the hash covers the source and the flags, so a
-changed source gets a new file. Libraries load with ``ctypes``.
+changed source gets a new file. Libraries load with ``ctypes``. Every
+kernel wrapper checks its operands with :func:`check` and calls an entry
+through :func:`launch`.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -75,3 +79,32 @@ def load_library(name: str, symbols: dict[str, list]) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+          device) -> None:
+    """Refuse an operand ``name`` that is not a contiguous ``dtype`` tensor
+    of ``shape`` on ``device``: TypeError for the dtype, else ValueError."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(library: ctypes.CDLL, fn: str, device, *args,
+           errors: dict | None = None) -> None:
+    """Call ``library``'s entry ``fn`` with ``args`` and, last, the current
+    stream of ``device``, under that device's guard. A nonzero return
+    raises RuntimeError naming the entry, with ``errors``' text for the
+    code where it has one, else the cudaError code."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library, fn)(*args, stream)
+    if err != 0:
+        text = (errors or {}).get(err, f"cudaError {err}")
+        raise RuntimeError(f"{fn} failed: {text}")

@@ -73,18 +73,6 @@ def path(g, q: torch.Tensor, *, expand: int, ef: int, metric: Metric,
     return "loop"
 
 
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _library():
     return _nvcc.load_library(NAME, {"beam_level0_launch": _ARGS})
 
@@ -117,14 +105,14 @@ def beam_level0(g, q: torch.Tensor, seeds: torch.Tensor, *, ef: int,
     q = q.contiguous()
     seeds = seeds.to(torch.int32).contiguous()
     S = seeds.shape[1]
-    _check("q", q, torch.float32, (Q, d), dev)
-    _check("seeds", seeds, torch.int32, (Q, S), dev)
-    _check("vectors", g.vectors, torch.float32, (cap1, d), dev)
-    _check("neighbors0", g.neighbors0, torch.int32, (cap1, deg), dev)
-    _check("deleted", g.deleted, torch.bool, (cap1,), dev)
+    _nvcc.check("q", q, torch.float32, (Q, d), dev)
+    _nvcc.check("seeds", seeds, torch.int32, (Q, S), dev)
+    _nvcc.check("vectors", g.vectors, torch.float32, (cap1, d), dev)
+    _nvcc.check("neighbors0", g.neighbors0, torch.int32, (cap1, deg), dev)
+    _nvcc.check("deleted", g.deleted, torch.bool, (cap1,), dev)
     if allowed is not None:
         allowed = allowed.contiguous()
-        _check("allowed", allowed, torch.bool, (cap1,), dev)
+        _nvcc.check("allowed", allowed, torch.bool, (cap1,), dev)
     out_d = torch.empty((Q, ef), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, ef), dtype=torch.int32, device=dev)
     hist = torch.empty((Q, ring), dtype=torch.int32, device=dev)
@@ -134,18 +122,12 @@ def beam_level0(g, q: torch.Tensor, seeds: torch.Tensor, *, ef: int,
         return out_d, out_i, hist, hops, evals
     vec4 = int(d % 4 == 0 and q.data_ptr() % 16 == 0
                and g.vectors.data_ptr() % 16 == 0)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.beam_level0_launch(
-            METRICS[metric], vec4, q.data_ptr(), seeds.data_ptr(),
-            g.vectors.data_ptr(), g.neighbors0.data_ptr(),
-            g.deleted.data_ptr(),
-            None if allowed is None else allowed.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(), hist.data_ptr(),
-            hops.data_ptr(), evals.data_ptr(), Q, S, d, deg, ef, ring,
-            max_steps, cap1 - 1, stream)
-    if err != 0:
-        raise RuntimeError(f"beam_level0_launch failed: cudaError {err}")
+    _nvcc.launch(
+        _library(), "beam_level0_launch", dev, METRICS[metric], vec4,
+        q.data_ptr(), seeds.data_ptr(), g.vectors.data_ptr(),
+        g.neighbors0.data_ptr(), g.deleted.data_ptr(),
+        None if allowed is None else allowed.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), hist.data_ptr(), hops.data_ptr(), evals.data_ptr(),
+        Q, S, d, deg, ef, ring, max_steps, cap1 - 1)
     BEAM_LAUNCHES["kernel"] += 1
     return out_d, out_i, hist, hops, evals

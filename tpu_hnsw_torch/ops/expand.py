@@ -157,18 +157,6 @@ def topr_route(Q: int, p: int, r: int, B: int, S: int,
     return "ring"
 
 
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_row_info_aligned(entry, S, blocks_sq, block_ids, allowed):
     """The scorer copies a block's row ids, norms and filter bytes 16 bytes
     at a time (bulk copies in the fused entry) when S % 16 == 0 and else 4
@@ -249,22 +237,22 @@ def _operands(entry, blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
     Q, p = bids.shape
     if Q * p >= 1 << 31 or p * S >= 1 << 31:
         raise ValueError(f"{entry}: Q * p and p * S must be below 2^31")
-    _check("blocks", blocks, blocks.dtype, (B, S, dp), dev)
-    _check("blocks_sq", blocks_sq, torch.float32, (B, S), dev)
-    _check("block_ids", block_ids, torch.int32, (B, S), dev)
-    _check("q_sq", q_sq, torch.float32, (Q,), dev)
-    _check("q", q, torch.float32, (Q, dp), dev)
+    _nvcc.check("blocks", blocks, blocks.dtype, (B, S, dp), dev)
+    _nvcc.check("blocks_sq", blocks_sq, torch.float32, (B, S), dev)
+    _nvcc.check("block_ids", block_ids, torch.int32, (B, S), dev)
+    _nvcc.check("q_sq", q_sq, torch.float32, (Q,), dev)
+    _nvcc.check("q", q, torch.float32, (Q, dp), dev)
     if bids.device != dev:
         raise ValueError(f"bids: expected device {dev}, got {bids.device}")
     if allowed is not None:
-        _check("allowed", allowed, torch.bool, (B, S), dev)
+        _nvcc.check("allowed", allowed, torch.bool, (B, S), dev)
     _check_row_info_aligned(entry, S, blocks_sq, block_ids, allowed)
     if blocks.dtype == torch.int8:
         if q8 is None or q_scale is None or score_scale is None:
             raise ValueError("int8 blocks need q8, q_scale and score_scale")
-        _check("q8", q8, torch.int8, (Q, dp), dev)
-        _check("q_scale", q_scale, torch.float32, (Q,), dev)
-        _check("score_scale", score_scale, torch.float32, (B,), dev)
+        _nvcc.check("q8", q8, torch.int8, (Q, dp), dev)
+        _nvcc.check("q_scale", q_scale, torch.float32, (Q,), dev)
+        _nvcc.check("score_scale", score_scale, torch.float32, (B,), dev)
         q_op, qs_ptr, ss_ptr = q8, q_scale.data_ptr(), score_scale.data_ptr()
     else:
         q_op = q.to(blocks.dtype)  # bf16 rows meet a bf16-rounded query
@@ -292,16 +280,6 @@ def _operands(entry, blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
     return _MODES[blocks.dtype], vec, args, keep, (B, Q, p, S, row_bytes)
 
 
-def _launch(fn: str, dev, args) -> None:
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} failed: "
-                           f"{_ERRORS.get(err, f'cudaError {err}')}")
-
-
 def expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
                  *, q8=None, q_scale=None, score_scale=None,
                  allowed=None) -> torch.Tensor:
@@ -325,10 +303,9 @@ def expand_score(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
         "expand_score", blocks, blocks_sq, block_ids, q, q_sq, bids, metric,
         q8, q_scale, score_scale, allowed)
     out = torch.empty((Q, p, S), dtype=torch.float32, device=blocks.device)
-    _launch("expand_score_launch", blocks.device,
-            [mode, vec] + args
-            + [out.data_ptr(), B, Q * p, p, S, row_bytes,
-               int(metric is Metric.L2)])
+    _nvcc.launch(_library(), "expand_score_launch", blocks.device, mode, vec,
+                 *args, out.data_ptr(), B, Q * p, p, S, row_bytes,
+                 int(metric is Metric.L2), errors=_ERRORS)
     LAUNCHES += 1
     return out
 
@@ -376,11 +353,11 @@ def expand_topr(blocks, blocks_sq, block_ids, q, q_sq, bids, metric: Metric,
     dev = blocks.device
     top = (torch.empty((Q, rq), dtype=torch.float32, device=dev),
            torch.empty((Q, rq), dtype=torch.int64, device=dev))
-    _launch("expand_topr_grouped_launch" if route == "grouped"
-            else "expand_topr_launch", dev,
-            [mode, vec] + args
-            + [B, Q * p, p, S, row_bytes, int(metric is Metric.L2), R,
-               top[0].data_ptr(), top[1].data_ptr(), rq])
+    entry = ("expand_topr_grouped_launch" if route == "grouped"
+             else "expand_topr_launch")
+    _nvcc.launch(_library(), entry, dev, mode, vec, *args, B, Q * p, p, S,
+                 row_bytes, int(metric is Metric.L2), R, top[0].data_ptr(),
+                 top[1].data_ptr(), rq, errors=_ERRORS)
     LAUNCHES += 1
     TOPR_LAUNCHES += 1
     TOPR_ROUTE_LAUNCHES[route] += 1

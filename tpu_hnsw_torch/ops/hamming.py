@@ -108,18 +108,6 @@ def hamming_topk_reference(q, x, pop_q, pop_x, k: int, metric: str):
     return d, ids.to(torch.int32)
 
 
-def _check(name, t, shape, dtype, device):
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got "
-                         f"{tuple(t.shape)}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _operands(q, x, entry: str):
     """Checked (q, x, Q, N, W) for a launch on ``x``'s CUDA device."""
     q, x = words(q), words(x)
@@ -129,8 +117,8 @@ def _operands(q, x, entry: str):
         raise ValueError(f"{entry}: x must be [N, W] with W >= 1")
     N, W = x.shape
     Q = q.shape[0] if q.ndim == 2 else -1
-    _check("x", x, (N, W), torch.int32, x.device)
-    _check("q", q, (Q, W), torch.int32, x.device)
+    _nvcc.check("x", x, torch.int32, (N, W), x.device)
+    _nvcc.check("q", q, torch.int32, (Q, W), x.device)
     if -(-Q // _BQ) > 65535 or N >= 1 << 31:
         raise ValueError(f"{entry}: at most {65535 * _BQ} queries and "
                          f"2^31 - 1 rows (int32 ids)")
@@ -148,14 +136,9 @@ def _splits(Q: int, N: int, device) -> tuple[int, int]:
     return per, -(-N // per)
 
 
-def _launch(fn, dev, *args):
-    lib = _nvcc.load_library(NAME, {"hamming_scan_launch": _SCAN_ARGS,
-                                    "hamming_topk_launch": _TOPK_ARGS})
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} failed: cudaError {err}")
+def _library():
+    return _nvcc.load_library(NAME, {"hamming_scan_launch": _SCAN_ARGS,
+                                     "hamming_topk_launch": _TOPK_ARGS})
 
 
 def hamming_scan(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -172,8 +155,8 @@ def hamming_scan(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if Q == 0 or N == 0:
         return out
     per, ns = _splits(Q, N, x.device)
-    _launch("hamming_scan_launch", x.device, q.data_ptr(), x.data_ptr(),
-            out.data_ptr(), Q, N, W, per, ns)
+    _nvcc.launch(_library(), "hamming_scan_launch", x.device, q.data_ptr(),
+                 x.data_ptr(), out.data_ptr(), Q, N, W, per, ns)
     LAUNCHES += 1
     return out
 
@@ -199,16 +182,17 @@ def hamming_topk(q: torch.Tensor, x: torch.Tensor, pop_q: torch.Tensor,
     if x.device.type == "cpu":
         return hamming_topk_reference(q, x, pop_q, pop_x, k, metric)
     q, x, Q, N, W = _operands(q, x, "hamming_topk")
-    _check("pop_q", pop_q, (Q,), torch.int32, x.device)
-    _check("pop_x", pop_x, (N,), torch.int32, x.device)
+    _nvcc.check("pop_q", pop_q, torch.int32, (Q,), x.device)
+    _nvcc.check("pop_x", pop_x, torch.int32, (N,), x.device)
     if Q == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=x.device),
                 torch.empty((0, k), dtype=torch.int32, device=x.device))
     per, ns = _splits(Q, N, x.device)
     cand = torch.empty((Q, ns * k), dtype=torch.int64, device=x.device)
-    _launch("hamming_topk_launch", x.device, q.data_ptr(), x.data_ptr(),
-            pop_q.data_ptr(), pop_x.data_ptr(), cand.data_ptr(), Q, N, W,
-            per, ns, k, int(metric == "jaccard"))
+    _nvcc.launch(_library(), "hamming_topk_launch", x.device, q.data_ptr(),
+                 x.data_ptr(), pop_q.data_ptr(), pop_x.data_ptr(),
+                 cand.data_ptr(), Q, N, W, per, ns, k,
+                 int(metric == "jaccard"))
     LAUNCHES += 1
     TOPK_LAUNCHES += 1
     d, ids = T.decode_score_keys(torch.topk(cand, k, dim=1, largest=False,

@@ -1,10 +1,11 @@
 """Query-centroid routing: each query's nearest centroids of each group.
 
-The route of the block engine (``index/block.py::_route_exact``, port of
-``tpu_hnsw/index/block.py::_route_exact_body``) and of the stacked searcher
-(``parallel/partition.py::ShardedBlockSearcher._route``): f32 scores of
-every query against every live centroid and each (query, group) row's
-``p`` best, ascending by (score, index).
+The exact route of the block engine (``index/block.py``'s
+``BlockHnswIndex.search_device``, port of ``tpu_hnsw/index/block.py::
+_route_exact_body``) and of the stacked searcher (``parallel/
+partition.py::ShardedBlockSearcher._route``): f32 scores of every query
+against every live centroid and each (query, group) row's ``p`` best,
+ascending by (score, index).
 
 Two paths, picked by dtype and shape (:func:`fused`):
 
@@ -156,18 +157,6 @@ def split_count(Q: int, L: int, b: int, p: int, slots: int) -> int:
     return best
 
 
-def _check(name, t, shape, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _library():
     return _nvcc.load_library(NAME, {"route_topk_launch": _ARGS,
                                      "route_topk_occupancy": [_I]})
@@ -180,15 +169,12 @@ def _launch(cents, csq, q, q_sq, p: int, metric: Metric, live,
     dev = cents.device
     L, b, d = cents.shape
     Q = q.shape[0]
-    _check("centroids", cents, (L, b, d), dev)
-    _check("c_sq", csq, (L, b), dev)
-    _check("q", q, (Q, d), dev)
-    _check("q_sq", q_sq, (Q,), dev)
+    _nvcc.check("centroids", cents, torch.float32, (L, b, d), dev)
+    _nvcc.check("c_sq", csq, torch.float32, (L, b), dev)
+    _nvcc.check("q", q, torch.float32, (Q, d), dev)
+    _nvcc.check("q_sq", q_sq, torch.float32, (Q,), dev)
     if live is not None:
-        if live.dtype != torch.int32 or tuple(live.shape) != (L,) \
-                or live.device != dev or not live.is_contiguous():
-            raise ValueError(f"live: expected a contiguous [{L}] int32 "
-                             f"tensor on {dev}")
+        _nvcc.check("live", live, torch.int32, (L,), dev)
     if not 1 <= p <= KERNEL_MAX_P:
         raise ValueError(f"route_topk: the kernel takes p in [1, "
                          f"{KERNEL_MAX_P}], got {p}")
@@ -205,17 +191,12 @@ def _launch(cents, csq, q, q_sq, p: int, metric: Metric, live,
             if S > 1 else None)
     vec = 16 if (d % 4 == 0 and q.data_ptr() % 16 == 0
                  and cents.data_ptr() % 16 == 0) else 4
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.route_topk_launch(
-            vec, q.data_ptr(), q_sq.data_ptr(), cents.data_ptr(),
-            csq.data_ptr(), None if live is None else live.data_ptr(), Q, L,
-            b, d, p, S, span, int(metric is Metric.L2), b if offset else 0,
-            None if keys is None else keys.data_ptr(), out.data_ptr(),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"route_topk_launch failed: cudaError {err}")
+    _nvcc.launch(
+        _library(), "route_topk_launch", dev, vec, q.data_ptr(),
+        q_sq.data_ptr(), cents.data_ptr(), csq.data_ptr(),
+        None if live is None else live.data_ptr(), Q, L, b, d, p, S, span,
+        int(metric is Metric.L2), b if offset else 0,
+        None if keys is None else keys.data_ptr(), out.data_ptr())
     ROUTE_LAUNCHES["fused"] += 1
     return out
 

@@ -33,7 +33,6 @@ one device, or P / R partitions on each of R ranks.
 from __future__ import annotations
 
 import json
-import math
 import os
 
 import numpy as np
@@ -42,9 +41,9 @@ import torch.distributed as dist
 
 from tpu_hnsw_torch.config import HnswConfig, Metric, validate_ef_search
 from tpu_hnsw_torch.index import graph as G
-from tpu_hnsw_torch.index.block import (BlockHnswIndex, _check_score_dtype,
-                                        _expand_blocks, _expand_blocks_2stage,
-                                        _score_width)
+from tpu_hnsw_torch.index.block import (BlockHnswIndex, Stored,
+                                        _check_score_dtype, _expand_step,
+                                        _score_width, probes_for_ef)
 from tpu_hnsw_torch.index.hnsw import HnswIndex
 from tpu_hnsw_torch.index.search import _descend_body, _search_layer_body
 from tpu_hnsw_torch.ops import distance as D
@@ -987,12 +986,12 @@ class ShardedBlockSearcher:
     # ---------------------------------------------------------------- search
     def probes_for_ef(self, ef_search: int) -> int:
         """Blocks a partition probes for an ef (the block engine's
-        ``ROWS_PER_EF`` mapping, partition.py:1266-1277); partitions with
-        fewer blocks probe padded ones, which hold nothing."""
+        :func:`~tpu_hnsw_torch.index.block.probes_for_ef`), at most the
+        largest partition's block count; partitions with fewer blocks probe
+        padded ones, which hold nothing."""
         ref = next(s for s in self.parent.parts if s.n_blocks)
-        p = math.ceil(ref.ROWS_PER_EF * ef_search / ref.block_size)
-        p += int((ref.block_slack - 1) * p + 0.5)
-        return max(1, min(p, self._max_blocks))
+        return probes_for_ef(ef_search, ref.block_size, ref.block_slack,
+                             self._max_blocks)
 
     def _queries(self, queries) -> torch.Tensor:
         """Raw f32 queries on the device (a tensor is not validated)."""
@@ -1035,8 +1034,8 @@ class ShardedBlockSearcher:
         L = self.blocks.shape[0]
         nq = q.shape[0]
         with annotate("route", nq):
-            # the block engine's own route (_route_exact, block.py:305),
-            # each partition's ids offset into the stacked table
+            # the block engine's own route (block.py:305), each
+            # partition's ids offset into the stacked table
             bids = R.route_topk(self.centroids, self.centroids_sq, q, q_sq,
                                 probes, self.parent.cfg.metric,
                                 live=self._live, offset=True)
@@ -1044,31 +1043,32 @@ class ShardedBlockSearcher:
                 bids = torch.where(selected[:, :, None], bids, -1)
             return bids.view(nq * L, probes)
 
+    @property
+    def _stored(self) -> Stored:
+        """The stacked state as ``[L*b, ...]`` views, with the serving
+        options, for the block engine's expansion step."""
+        L, b, S = self.blocks.shape[:3]
+        return Stored(self.blocks.view(L * b, S, -1),
+                      self.blocks_score.view(L * b, S, -1),
+                      self.blocks_sq.view(L * b, S),
+                      self.block_gids.view(L * b, S),
+                      (None if self.score_scales is None
+                       else self.score_scales.view(-1)),
+                      self.two_stage, self.rerank_width)
+
     def _fan_out(self, q, selected, *, k: int, probes: int):
         """Every local partition's top-k for every query in one batch:
         ``[Q, (P/R)*k]`` raw scores and global ids, partition-major."""
         metric = self.parent.cfg.metric
-        L, b, S = self.blocks.shape[:3]
+        L = self.blocks.shape[0]
         nq = q.shape[0]
         q_sq = D.squared_norms(q)
         bids = self._route(q, q_sq, selected, probes)
         with annotate("expand", nq):
             qv = q.repeat_interleave(L, 0)
             qv_sq = q_sq.repeat_interleave(L, 0)
-            gids = self.block_gids.view(L * b, S)
-            if self.two_stage:
-                vals, ids = _expand_blocks_2stage(
-                    self.blocks_score.view(L * b, S, -1),
-                    self.blocks_sq.view(L * b, S), gids,
-                    self.blocks.view(L * b * S, -1), qv, qv_sq, bids, k=k,
-                    rerank=max(self.rerank_width, k), metric=metric,
-                    score_scale=(None if self.score_scales is None
-                                 else self.score_scales.view(-1)))
-            else:
-                vals, ids = _expand_blocks(
-                    self.blocks.view(L * b, S, -1),
-                    self.blocks_sq.view(L * b, S), gids, qv, qv_sq, bids,
-                    k=k, metric=metric)
+            vals, ids = _expand_step(self._stored, qv, qv_sq, bids, k=k,
+                                     metric=metric)
             vals = vals.reshape(nq, L * k)
             ids = ids.reshape(nq, L * k).long()
             if selected is not None:
