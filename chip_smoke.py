@@ -1053,22 +1053,29 @@ def build_phase(names=(X.NAME, H.NAME, R.NAME, BM.NAME)) -> dict:
     return {n: b[2] for n, b in built.items()}
 
 
-#: the route's shapes: (what, Q, groups, centroids a group, d, metric, p):
-#: the benchmark cells' (p 8), the CLI eval sweep's 512-query chunks of the
-#: 1M x 128 index at 34 and 105 probes, and the bench grid's widest p
-ROUTE_SHAPES = (("sift1m.bulk", 4096, 1, 4102, 128, Metric.L2, 8),
-                ("deep10m.bulk", 4096, 8, 5127, 96, Metric.IP, 8),
-                ("sift1m.interactive", 32, 1, 4102, 128, Metric.L2, 8),
-                ("cli.eval.p34", 512, 1, 4102, 128, Metric.L2, 34),
-                ("cli.eval.p105", 512, 1, 4102, 128, Metric.L2, 105),
-                ("bench.grid.p128", 4096, 1, 4102, 128, Metric.L2, 128))
+#: the route's shapes: (what, Q, groups, centroids a group, d, metric, p,
+#: live centroids or None for all): the block cells' (p 8), the graph
+#: cell's dense route (p 1 over ~62,400 upper vectors of a table padded to
+#: a multiple of 256), the CLI eval sweep's 512-query chunks of the 1M x
+#: 128 index at 34 and 105 probes, and the bench grid's widest p
+ROUTE_SHAPES = (("sift1m.bulk", 4096, 1, 4102, 128, Metric.L2, 8, None),
+                ("deep10m.bulk", 4096, 8, 5127, 96, Metric.IP, 8, None),
+                ("sift1m.interactive", 32, 1, 4102, 128, Metric.L2, 8,
+                 None),
+                ("sift1m-graph.bulk", 4096, 1, 62464, 128, Metric.L2, 1,
+                 62400),
+                ("cli.eval.p34", 512, 1, 4102, 128, Metric.L2, 34, None),
+                ("cli.eval.p105", 512, 1, 4102, 128, Metric.L2, 105, None),
+                ("bench.grid.p128", 4096, 1, 4102, 128, Metric.L2, 128,
+                 None))
 
 
 def route_operands(dev, seed: int, Q: int, L: int, b: int, d: int,
-                   metric: Metric, ints: bool):
+                   metric: Metric, ints: bool, live: int | None = None):
     """(centroids [L, b, d], c_sq, q, q_sq) on the card: integers in [-4, 4]
     (every f32 dot exact, ties everywhere) or normal rows (unit rows for
-    IP, as DEEP's)."""
+    IP, as DEEP's); centroids from ``live`` on are zero rows (the graph
+    table's sentinel)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     if ints:
         c = torch.randint(-4, 5, (L, b, d), generator=g, device=dev).float()
@@ -1078,21 +1085,27 @@ def route_operands(dev, seed: int, Q: int, L: int, b: int, d: int,
         q = torch.randn((Q, d), generator=g, device=dev)
         if metric is Metric.IP:
             c, q = F.normalize(c, dim=-1), F.normalize(q, dim=-1)
+    if live is not None:
+        c[:, live:] = 0.0
     return c, (c * c).sum(-1), q, (q * q).sum(-1)
 
 
-def route_f64_gap(ids, c, q, metric: Metric) -> tuple[float, float, float]:
+def route_f64_gap(ids, c, q, metric: Metric,
+                  live=None) -> tuple[float, float, float]:
     """(widest margin by which a chosen centroid's float64 score is worse
-    than an unchosen one's, widest inversion of the chosen order, the f32
-    tolerance d * eps * (max |q|^2 + max |c|^2))."""
+    than an unchosen live one's, widest inversion of the chosen order, the
+    f32 tolerance d * eps * (max |q|^2 + max |c|^2))."""
     c64, q64 = c.double(), q.double()
     dots = torch.einsum("qd,lbd->qlb", q64, c64)
     sc = ((q64 * q64).sum(1)[:, None, None] + (c64 * c64).sum(-1)[None]
           - 2 * dots) if metric is Metric.L2 else -dots
+    if live is not None:
+        sc[..., live:] = torch.inf
     chosen = torch.gather(sc, 2, ids)
     others = sc.scatter(2, ids, torch.inf).amin(-1)
     worst = (chosen.amax(-1) - others).clamp_min(0).max().item()
-    order = (chosen[..., :-1] - chosen[..., 1:]).clamp_min(0).max().item()
+    order = ((chosen[..., :-1] - chosen[..., 1:]).clamp_min(0).max().item()
+             if chosen.shape[-1] > 1 else 0.0)
     tol = c.shape[-1] * float(np.finfo(np.float32).eps) * (
         (q * q).sum(1).max().item() + (c * c).sum(-1).max().item())
     return worst, order, tol
@@ -1108,37 +1121,47 @@ def route_phase(card: str, dev: torch.device) -> list:
     plain version and the library chain (the f32 GEMM, +inf padding, then
     ``topk_smallest_fast``: a radix ``torch.topk`` over these rows), at
     every shape, whichever ``route_topk`` takes there (``path``); the
-    route's counters must equal the calls made on each path."""
+    route's counters must equal the calls made on each path. A shape with
+    a live count (the graph route's table: its rows past the count are the
+    sentinel's zero row) passes it to every path."""
     out = []
-    for what, Q, L, b, d, metric, p in ROUTE_SHAPES:
-        exact = route_operands(dev, 1, Q, L, b, d, metric, ints=True)
-        want = R.route_topk_reference(*exact, p, metric)
-        got = R._launch(*exact, p, metric, None, False)
+    for what, Q, L, b, d, metric, p, n_live in ROUTE_SHAPES:
+        live = (None if n_live is None else
+                torch.full((L,), n_live, dtype=torch.int32, device=dev))
+        kw = dict(live=live)
+        exact = route_operands(dev, 1, Q, L, b, d, metric, ints=True,
+                               live=n_live)
+        want = R.route_topk_reference(*exact, p, metric, **kw)
+        got = R._launch(*exact, p, metric, live, False)
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"route ids differ at {what}"
-        ops = route_operands(dev, 2, Q, L, b, d, metric, ints=False)
-        got = R._launch(*ops, p, metric, None, False)
-        want = R.route_topk_reference(*ops, p, metric)
-        worst, order, tol = route_f64_gap(got, ops[0], ops[2], metric)
+        ops = route_operands(dev, 2, Q, L, b, d, metric, ints=False,
+                             live=n_live)
+        got = R._launch(*ops, p, metric, live, False)
+        want = R.route_topk_reference(*ops, p, metric, **kw)
+        worst, order, tol = route_f64_gap(got, ops[0], ops[2], metric,
+                                          n_live)
         assert worst <= tol and order <= tol, (what, worst, order, tol)
         differ = (got != want).any(-1).float().mean().item()
         assert differ < 0.01, (what, differ)
         path = "fused" if R.fused(ops[0], p) else "gemm_topk"
         with counted_routes() as calls:
-            ms, smi = sampled_ms(lambda: R.route_topk(*ops, p, metric))
+            ms, smi = sampled_ms(lambda: R.route_topk(*ops, p, metric,
+                                                      **kw))
         launches = route_launches(calls, kernel=path == "fused")
-        kernel = lambda: R._launch(*ops, p, metric, None, False)  # noqa
+        kernel = lambda: R._launch(*ops, p, metric, live, False)  # noqa
         kernel_ms, dev_ms = cuda_ms(kernel, 20), device_ms(kernel)
-        plain_ms = cuda_ms(lambda: R.route_topk_reference(*ops, p, metric),
-                           5)
+        plain_ms = cuda_ms(lambda: R.route_topk_reference(*ops, p, metric,
+                                                          **kw), 5)
         chain = lambda: R.route_topk_reference(  # noqa: E731
-            *ops, p, metric, select=T.topk_smallest_fast)
+            *ops, p, metric, select=T.topk_smallest_fast, **kw)
         lib_ms, lib_dev_ms = cuda_ms(chain, 20), device_ms(chain)
         nbytes = 4 * (Q * d + Q + L * b * d + L * b) + 8 * Q * L * p
-        flops = 2 * Q * L * b * d
+        flops = 2 * Q * L * (b if n_live is None else n_live) * d
         bound_ms, by = bound(nbytes, flops, "float32")
-        row = {"of": what, "Q": Q, "groups": L, "centroids": b, "d": d,
-               "metric": metric.value, "p": p, "path": path,
+        row = {"of": what, "Q": Q, "groups": L, "centroids": b,
+               "live": n_live, "d": d, "metric": metric.value, "p": p,
+               "path": path,
                "split": R.split_count(Q, L, b, p,
                                       R._slots(dev.index or 0, p)),
                "ms": kernel_ms, "device_ms": dev_ms, "route_ms": ms,
@@ -1652,6 +1675,15 @@ def graph_phase(base: np.ndarray, queries: np.ndarray, gt: np.ndarray,
           f"two points {json.dumps(refine['recall'])} [{card}]", flush=True)
     out["qps"], out["qps_windows"] = qps_windows(
         lambda s: idx.search_device(qdev[s:s + CHUNK], k=10, **kw)[1], NQ)
+    # the route of each request: one launch of the route kernel, no chain
+    with counted_routes() as calls:
+        for s in range(0, NQ, CHUNK):
+            idx.search_device(qdev[s:s + CHUNK], k=10, **kw)
+        torch.cuda.synchronize()
+    out["route_launches"] = route_launches(calls)
+    assert out["route_launches"] == {"fused": -(-NQ // CHUNK),
+                                     "gemm_topk": 0, "plain": 0}, \
+        out["route_launches"]
     _, _, counters = idx.search_with_stats(qdev, k=10, **kw)
     out["counters"] = counters
     _, ids_desc = idx.search(qdev, k=10, route="descent", **kw)
@@ -1733,7 +1765,7 @@ def beam_phase(idx, qdev, card: str) -> dict:
     path."""
     g, Q, ef = idx.graph, qdev.shape[0], 40
     metric = idx.cfg.metric
-    seeds = SE.scan_seeds(g, qdev, idx._upper_ids_dev(), descent_ef=1,
+    seeds = SE.scan_seeds(g, qdev, idx._route_table()[0], descent_ef=1,
                           metric=metric)
     out = {"real": beam_against_loop(g, qdev, seeds, ef, metric)}
     assert out["real"]["rows_differing"] <= Q // 1000, out["real"]
@@ -3911,6 +3943,7 @@ def run(host: HostData) -> None:
     # the graph engine on the same data and ground truth
     with phase("graph"):
         graph, gidx, gkw, gbreak = graph_phase(base, queries, gt, card, dev)
+        route_paths["graph_1Mx128"] = graph.pop("route_launches")
         breakdowns.append(gbreak)
     with phase("beam"):
         beam = beam_phase(gidx, torch.from_numpy(queries).to(dev), card)
@@ -4094,7 +4127,8 @@ def run(host: HostData) -> None:
         "source": "tpu_hnsw_torch/csrc/route_topk.cu (route_topk_launch: "
                   "route_topk_tile, route_topk_reduce)",
         "replaces": "the XLA dot and top_k of tpu_hnsw/index/block.py:287 "
-                    "(_route_exact_body); no Pallas kernel",
+                    "(_route_exact_body) and of tpu_hnsw/index/search.py:"
+                    "405-442 (_scan_seeds_body); no Pallas kernel",
         "launches_by_path": route_paths,
         "ms": at["ms"], "device_ms": at["device_ms"],
         "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],

@@ -205,8 +205,8 @@ def cell():
     idx = HnswIndex(cfg, device=dev).build(torch.from_numpy(base).to(dev),
                                            mode="bulk")
     q = torch.from_numpy(queries).to(dev)
-    seeds = SE.scan_seeds(idx.graph, q, idx._upper_ids_dev(), descent_ef=1,
-                          metric=Metric.L2)
+    seeds = SE.scan_seeds(idx.graph, q, idx._route_table()[0],
+                          descent_ef=1, metric=Metric.L2)
     gen = torch.Generator(device=dev).manual_seed(8)
     g = idx.graph
     ints = g._replace(vectors=torch.randint(

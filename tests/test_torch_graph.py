@@ -190,30 +190,46 @@ def test_descend_matches_jax(case, request):
         g.neighbors0.shape[1], g.upper_nbrs.shape[2], g.upper_nbrs.shape[2]]
 
 
-@pytest.mark.parametrize("case", ["clustered", "ties"])
-def test_scan_routed_search_matches_jax(case, request):
+@pytest.mark.parametrize("case,live", [
+    pytest.param(case, live, id=case + ("-live" if live else ""))
+    for live in (False, True) for case in ("clustered", "ties")])
+def test_scan_routed_search_matches_jax(case, live, request):
     """Dense-scan routing over the level >= 1 subset (U <= 256, where the
-    reference's top-k is exact): seeds and search results equal JAX's."""
+    reference's top-k is exact): seeds and search results equal JAX's. The
+    route is one ``route_topk`` call on its fused path (on the CPU its
+    plain version: ties to the lower index, as ``lax.top_k``), over the
+    route table the search makes from ids whose sentinels lie anywhere, or
+    over a table with its live count given (``HnswIndex``'s)."""
     import jax.numpy as jnp
 
     from tpu_hnsw.index.search import scan_seeds as jscan
     from tpu_hnsw.index.search import search as jsearch
+    from tpu_hnsw_torch.ops import route as R
 
     base, queries, cfg, g, jg, ref = request.getfixturevalue(case)
     upper = np.where(np.asarray(ref.levels) >= 1)[0]
     assert len(upper) <= 256
-    upper_ids = np.concatenate([upper, np.full(256 - len(upper),
-                                               g.sentinel)]).astype(np.int32)
+    pad = np.arange(256) >= len(upper)
+    if not live:  # the sentinels anywhere among the ascending ids
+        pad = np.random.default_rng(3).permutation(pad)
+    upper_ids = np.full(256, g.sentinel, np.int32)
+    upper_ids[~pad] = upper
+    upper_live = (torch.tensor([len(upper)], dtype=torch.int32) if live
+                  else None)
+    before = dict(R.ROUTE_LAUNCHES)
     seeds = SE.scan_seeds(g, torch.from_numpy(queries),
                           torch.from_numpy(upper_ids), descent_ef=4,
                           metric=cfg.metric)
+    moved = {k: R.ROUTE_LAUNCHES[k] - before[k] for k in before}
+    assert moved == {"fused": 0, "gemm_topk": 0, "plain": 1}
     jseeds = jscan(jg, jnp.asarray(queries), jnp.asarray(upper_ids),
                    descent_ef=4, metric=_jm(cfg.metric))
     np.testing.assert_array_equal(seeds.numpy(), np.asarray(jseeds))
     kw = dict(entry=ref.entry, entry_level=ref.entry_level, k=10,
               ef_search=32, expand=2, descent_ef=4, with_counters=True)
     _assert_same(SE.search(g, torch.from_numpy(queries), metric=cfg.metric,
-                           upper_ids=torch.from_numpy(upper_ids), **kw),
+                           upper_ids=torch.from_numpy(upper_ids),
+                           upper_live=upper_live, **kw),
                  jsearch(jg, jnp.asarray(queries), metric=_jm(cfg.metric),
                          upper_ids=jnp.asarray(upper_ids), **kw))
 

@@ -9,7 +9,12 @@ on the CPU at a small size:
   graph, with the step cap and without;
 - the engine file's four functions (``hnswbench/engines/graph.py``);
 - the spans (``search`` > ``queries``, ``descend`` or ``route_scan``,
-  ``beam_level0``, each with its work) and the beam's counters.
+  ``beam_level0``, each with its work) and the beam's counters;
+- the dense route's two paths: ``HnswIndex``'s table (a sentinel tail,
+  its live count cached with it) through ``ops/route.py::route_topk``
+  (on the CPU its plain version; on the card one kernel launch a request),
+  a table with scattered sentinels (the build's) through the GEMM + top-k
+  chain, each counted in ``ROUTE_LAUNCHES``.
 
 Tolerances: ids of at least 99% of queries equal, a query whose two lists
 differ only among equal distances counting as equal; distances of a
@@ -28,10 +33,14 @@ import torch
 from hnswbench import check, spec
 from hnswbench import reference_graph as RG
 from tpu_hnsw_torch import HnswConfig, HnswIndex
+from tpu_hnsw_torch.config import Metric
+from tpu_hnsw_torch.index import build as BU
 from tpu_hnsw_torch.index import graph as G
 from tpu_hnsw_torch.index import search as SE
 from tpu_hnsw_torch.index.ref_impl import RefHnsw
 from tpu_hnsw_torch.io.datasets import synthetic_clustered
+from tpu_hnsw_torch.ops import route as R
+from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -76,6 +85,18 @@ def _shared_close(d_a, i_a, d_b, i_b) -> None:
                                            atol=1e-6)
 
 
+def _routes(fn):
+    """``fn()`` and what it added to each ``ROUTE_LAUNCHES`` path."""
+    before = dict(R.ROUTE_LAUNCHES)
+    out = fn()
+    return out, {k: R.ROUTE_LAUNCHES[k] - before[k] for k in before}
+
+
+NO_ROUTE = {"fused": 0, "gemm_topk": 0, "plain": 0}
+PLAIN = {**NO_ROUTE, "plain": 1}
+CHAIN = {**NO_ROUTE, "gemm_topk": 1}
+
+
 def test_walk_equals_ref_hnsw_search():
     base, queries = synthetic_clustered(600, 12, n_queries=32, seed=11)
     cfg = HnswConfig(dim=12, m=8, ef_construction=32, seed=4)
@@ -101,8 +122,11 @@ def test_search_device_agrees_with_the_walk(bulk, route, max_steps):
     reaches."""
     _, q, _, idx, (w_sc, w_ids, expanded) = bulk
     assert int(expanded.max()) < EF + 16  # no walk would hit the cap
-    dist, ids = idx.search_device(q, k=K, ef_search=EF, route=route,
-                                  max_steps=max_steps)
+    (dist, ids), moved = _routes(lambda: idx.search_device(
+        q, k=K, ef_search=EF, route=route, max_steps=max_steps))
+    # the dense route takes route_topk's fused path (here its plain
+    # version); "auto" descends at this size
+    assert moved == (PLAIN if route == "scan" else NO_ROUTE)
     sc = dist.double() ** 2
     assert _agree(sc, ids.long(), w_sc.double(), w_ids) >= 0.99
     _shared_close(sc, ids.long(), w_sc.double(), w_ids)
@@ -245,3 +269,94 @@ def test_spans_and_counters_add_no_operation(bulk):
                 if e.key.startswith("aten::")}
 
     assert ops(False) == ops(True)
+
+
+@pytest.mark.parametrize("descent_ef", [1, 4])
+def test_scan_seeds_take_the_fused_route(bulk, descent_ef):
+    """Over ``HnswIndex``'s route table the dense route is one
+    ``route_topk`` call on its fused path (on the CPU the plain version).
+    Its seeds equal the GEMM + top-k chain's (``route.py``'s, as the route
+    took it before) in every row whose best ``descent_ef + 1`` float64
+    scores lie further apart than f32 rounding (d * eps * (max |q|^2 +
+    max |v|^2)), and such rows are nearly all."""
+    _, q, _, idx, _ = bulk
+    g, metric = idx.graph, idx.cfg.metric
+    ids, live = idx._route_table()
+    assert live.dtype == torch.int32 and live.shape == (1,)
+    n_live = int(live)
+    assert n_live == idx.n_upper and (ids[n_live:] == g.sentinel).all()
+    fused, moved = _routes(lambda: SE._scan_seeds_body(
+        g, q, ids, live, descent_ef, metric))
+    assert moved == PLAIN
+    v, v_sq = G.gather_vectors(g, ids)
+    chain = ids[R.route_topk_reference(
+        v, v_sq, q, (q * q).sum(1), descent_ef, metric, live=live,
+        select=T.topk_smallest_fast)[:, 0]]
+    assert fused.shape == chain.shape == (q.shape[0], descent_ef)
+    v = v[:n_live].double()
+    q64 = q.double()
+    sc = ((q64 * q64).sum(1)[:, None] + (v * v).sum(1)[None]
+          - 2 * q64 @ v.T).sort(1)[0][:, :descent_ef + 1]
+    tol = q.shape[1] * float(np.finfo(np.float32).eps) * (
+        float((q64 * q64).sum(1).max()) + float((v * v).sum(1).max()))
+    apart = ((sc[:, 1:] - sc[:, :-1]) > tol).all(1)
+    assert apart.float().mean() > 0.95
+    assert torch.equal(fused[apart], chain[apart])
+
+
+@pytest.mark.parametrize("width,path", [(4, PLAIN), (64, CHAIN)])
+def test_scattered_sentinels_are_never_seeds(bulk, width, path):
+    """The build's table (``_live_scan_seeds``: tombstoned upper ids turned
+    into sentinels in place) under inner product with every dot negative,
+    where a sentinel's zero row would score -0 and beat every live row:
+    the sentinels are moved behind the live ids and counted out, so no
+    seed is a sentinel or a tombstone, and each row's first seed is the
+    live row of the best float64 score. At a width the kernel takes the
+    route is the fused path; at the build's ``ef_construction`` (64) it
+    stays on the GEMM + top-k chain."""
+    _, _, _, idx, _ = bulk
+    rng = np.random.default_rng(5)
+    g = idx.graph
+    vec = torch.from_numpy(rng.uniform(0.1, 1.0, tuple(g.vectors.shape))
+                           .astype(np.float32))
+    vec[g.cap] = 0.0
+    ids = idx._route_table()[0]
+    n_live = idx.n_upper
+    deleted = torch.zeros_like(g.deleted)
+    dead = ids[torch.from_numpy(rng.choice(n_live, n_live // 3,
+                                           replace=False))].long()
+    deleted[dead] = True
+    g2 = g._replace(vectors=vec, vectors_sq=(vec * vec).sum(1),
+                    deleted=deleted)
+    q = -torch.from_numpy(rng.uniform(0.1, 1.0, (60, g.dim))
+                          .astype(np.float32))
+    seeds, moved = _routes(lambda: BU._live_scan_seeds(g2, q, ids, width,
+                                                       Metric.IP))
+    assert moved == path
+    assert seeds.shape == (60, width)
+    assert not (seeds == g.sentinel).any()
+    assert not deleted[seeds.long()].any()
+    alive = ids[:n_live][~deleted[ids[:n_live].long()]].long()
+    best = alive[(q.double() @ vec[alive].double().T).argmax(1)]
+    assert torch.equal(seeds[:, 0].long(), best)
+
+
+@pytest.mark.cuda
+def test_a_card_request_routes_in_one_launch():
+    """On the card, a graph with more than ``ROUTE_SCAN_MIN_UPPER`` upper
+    elements served as the cell serves it (``route="auto"``, 4,096
+    queries): its route is one launch of the route kernel and no chain
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    base, queries = synthetic_clustered(80_000, 16, n_queries=4096, seed=4)
+    idx = spec.module("engines", "graph").build(
+        CONFIG, torch.from_numpy(base).cuda())
+    assert idx.n_upper >= HnswIndex.ROUTE_SCAN_MIN_UPPER
+    q = torch.from_numpy(queries).cuda()
+    idx.search_device(q, k=K, ef_search=EF)  # the live count, once
+    (_, ids), moved = _routes(lambda: idx.search_device(q, k=K,
+                                                        ef_search=EF))
+    torch.cuda.synchronize()
+    assert moved == {**NO_ROUTE, "fused": 1}
+    assert (ids != idx.graph.sentinel).all()

@@ -194,14 +194,15 @@ def test_route_cache_follows_mutation(data):
     graph changes in place (tests/test_search.py:141)."""
     base, _ = data
     idx = HnswIndex(CFG, capacity=1000, device="cpu").build(base[:600])
-    ids1 = idx._upper_ids_dev()
+    ids1, live1 = idx._route_table()
     n_up1 = idx.n_upper
-    assert idx._upper_ids_dev() is ids1  # cached
+    assert idx._route_table()[0] is ids1  # cached
     idx.add(base[600:])
-    ids2 = idx._upper_ids_dev()
+    ids2, live2 = idx._route_table()
     assert idx.n_upper > n_up1
-    assert int((ids1 != idx.graph.sentinel).sum()) == n_up1
-    assert int((ids2 != idx.graph.sentinel).sum()) == idx.n_upper
+    assert int((ids1 != idx.graph.sentinel).sum()) == n_up1 == int(live1)
+    assert int((ids2 != idx.graph.sentinel).sum()) == idx.n_upper \
+        == int(live2)
 
 
 def test_save_load_across_packages(data, pair, tmp_path):

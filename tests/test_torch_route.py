@@ -11,7 +11,9 @@
   integer-valued rows, whose f32 dots are exact in any summation order, so
   ids must be equal (ties to the lower index, planted duplicates, ragged
   shapes, padded groups), and normal rows at the benchmark cells' shapes,
-  held to the float64 scores within the f32 tolerance.
+  held to the float64 scores within the f32 tolerance; the top-1 epilogue
+  (p 1) at the graph route's shape, a sentinel tail, and ragged, split and
+  unsplit grids.
 
 The JAX package is imported inside the one test that compares with it, so
 the card's machine, which has no JAX, can run the card tests alone:
@@ -29,6 +31,10 @@ from tpu_hnsw_torch.ops import topk as T
 torch.set_num_threads(1)
 
 METRICS = [Metric.L2, Metric.IP]
+#: the graph route's table in ``sift1m-graph.bulk``: ~62,400 level >= 1
+#: elements of 1M, sentinel padded to a multiple of 256
+GRAPH_LIVE = 62_400
+GRAPH_U = 62_464
 
 
 def _case(seed, Q, L, b, d, *, ints=False, dup=0, normal_rows=False):
@@ -190,9 +196,11 @@ def test_chain_shares_the_plain_contract(metric):
     ((4096, 8, 5127, 8), 1),     # deep10m.bulk: 256 CTAs already
     ((4096, 1, 4102, 8), 9),     # sift1m.bulk: 32 query tiles x 9 ranges
     ((32, 1, 4102, 8), 33),      # sift1m.interactive: a tile a CTA
+    ((4096, 1, GRAPH_U, 1), 8),  # sift1m-graph.bulk: 32 tiles x 8 ranges
 ])
 def test_split_count_at_the_cells(shape, want):
-    """At an H100's 132 SMs x 2 CTAs at p 8."""
+    """At an H100's 132 SMs x 2 CTAs, at p 8 and at p 1 (the top-1
+    instantiation also holds two CTAs an SM: registers bound it)."""
     assert R.split_count(*shape, 264) == want
 
 
@@ -322,21 +330,99 @@ def test_kernel_planted_duplicates_take_the_lower_index(metric):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("metric", METRICS)
-def test_kernel_never_chooses_padding(metric):
+@pytest.mark.parametrize("metric,p", [
+    pytest.param(metric, p, id=str(metric) + ("-p1" if p == 1 else ""))
+    for p in (8, 1) for metric in METRICS])
+def test_kernel_never_chooses_padding(metric, p):
     """Groups with 5,127, 3,000, 130 and 3 live centroids of 5,127 (the
     stacked layout's padding): no id past a group's live count, -1 past a
-    row's live centroids, ids offset into the stacked table."""
+    row's live centroids, ids offset into the stacked table; at p 8 and
+    through the top-1 epilogue."""
     L, b = 4, 5127
     live = torch.tensor([5127, 3000, 130, 3], dtype=torch.int32)
-    got = _assert_equal_on_card(_case(13, 600, L, b, 24, ints=True), 8,
+    got = _assert_equal_on_card(_case(13, 600, L, b, 24, ints=True), p,
                                 metric, live=live, offset=True)
     for l in range(L):
         ids = got[:, l]
         n = int(live[l])
         ok = ids >= 0
         assert (ids[ok] >= l * b).all() and (ids[ok] < l * b + n).all()
-        assert ok[:, :min(8, n)].all() and not ok[:, min(8, n):].any()
+        assert ok[:, :min(p, n)].all() and not ok[:, min(p, n):].any()
+
+
+def _graph_table(seed, Q, U, live, d):
+    """The graph route's operands on the card, integer rows: ``[U, d]``
+    gathered upper vectors (one group) whose rows past ``live`` are the
+    sentinel's zero row, their norms, the queries and theirs."""
+    c, _, q, _ = _case(seed, Q, 1, U, d, ints=True)
+    c = c[0]
+    c[live:] = 0.0
+    c, q = _on(_card(), c, q)
+    return c, (c * c).sum(-1), q, (q * q).sum(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.IP, Metric.COSINE])
+def test_top1_exact_at_the_graph_shape(metric):
+    """The graph route at ``sift1m-graph.bulk``'s shape: 4,096 queries
+    against 62,400 live of 62,464 upper vectors (a sentinel tail), d 128,
+    p 1. On integer rows (exact dots, ties everywhere) the top-1 epilogue's
+    ids equal the plain version's, ties to the lower index; no sentinel
+    column is chosen, though under IP a zero row would beat every row whose
+    dot is negative."""
+    c, csq, q, qsq = _graph_table(20, 4096, GRAPH_U, GRAPH_LIVE, 128)
+    live = torch.tensor([GRAPH_LIVE], dtype=torch.int32, device=c.device)
+    got = _assert_equal_on_card((c, csq, q, qsq), 1, metric, live=live)
+    assert ((got >= 0) & (got < GRAPH_LIVE)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,U,live,split", [
+    (77, 1000, 999, True),       # one query tile, 8 ranges
+    (4097, 300, 300, True),      # a partly filled query tile, 3 ranges
+    (33_000, 1000, 1000, False),  # 258 query tiles fill the card unsplit
+    (5, 130, 3, True),           # fewer live columns than a tile
+])
+def test_top1_ragged_shapes(Q, U, live, split):
+    """p 1 at ragged shapes: Q not a multiple of the 128-query tile, U
+    not a multiple of the 128-centroid tile, a split grid (keys through
+    ``route_topk_reduce``) and an unsplit one."""
+    c, csq, q, qsq = _graph_table(21, Q, U, live, 20)
+    S = R.split_count(Q, 1, U, 1, R._slots(c.device.index or 0, 1))
+    assert (S > 1) == split
+    _assert_equal_on_card((c, csq, q, qsq), 1, Metric.L2,
+                          live=torch.tensor([live], dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_top1_planted_duplicates_take_the_lower_index(metric):
+    """Every centroid of normal rows has an exact copy at another column:
+    the pair scores bit-equal, so the one chosen is the lower column of
+    its pair."""
+    dev = _card()
+    c, _, q, qsq = _case(22, 300, 1, 700, 32)
+    perm = torch.randperm(1400, generator=torch.Generator().manual_seed(1))
+    c = torch.cat([c, c], 1)[:, perm]
+    c, csq, q, qsq = _on(dev, c, (c * c).sum(-1), q, qsq)
+    got, moved = _counted(lambda: R.route_topk(c, csq, q, qsq, 1, metric))
+    assert moved == {"fused": 1, "gemm_topk": 0, "plain": 0}
+    src = perm.to(dev) % 700  # each column's source row
+    first = torch.full((700,), 1400, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, src, torch.arange(1400, device=dev), "amin")
+    assert torch.equal(got[:, 0, 0], first[src[got[:, 0, 0]]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_top1_and_p8_on_the_same_inputs(metric):
+    """p 8 (the survivor epilogue) still equals the plain version on the
+    inputs p 1 (the top-1 epilogue) runs on, and p 1's id is p 8's
+    first."""
+    case = _case(23, 1000, 1, 4102, 64, ints=True, dup=30)
+    p8 = _assert_equal_on_card(case, 8, metric)
+    p1 = _assert_equal_on_card(case, 1, metric)
+    assert torch.equal(p1[..., 0], p8[..., 0])
 
 
 @pytest.mark.cuda
@@ -369,28 +455,32 @@ def _f64_gap(got, c, q, metric, live=None):
     chosen = torch.gather(sc, 2, got)
     others = sc.scatter(2, got, torch.inf).amin(-1)
     worst = (chosen.amax(-1) - others).clamp_min(0).max().item()
-    order = (chosen[..., :-1] - chosen[..., 1:]).clamp_min(0).max().item()
+    order = ((chosen[..., :-1] - chosen[..., 1:]).clamp_min(0).max().item()
+             if chosen.shape[-1] > 1 else 0.0)
     return worst, order
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("shape", [(4096, 1, 4102, 128), (4096, 8, 5127, 96),
-                                   (32, 1, 4102, 128)],
+@pytest.mark.parametrize("shape", [(4096, 1, 4102, 128, 8),
+                                   (4096, 8, 5127, 96, 8),
+                                   (32, 1, 4102, 128, 8),
+                                   (4096, 1, GRAPH_U, 128, 1)],
                          ids=["sift1m_bulk", "deep10m_bulk",
-                              "sift1m_interactive"])
+                              "sift1m_interactive", "sift1m_graph_bulk"])
 def test_kernel_within_f32_of_float64(metric, shape):
     """Normal rows (unit rows for the IP shape, as DEEP's): every chosen
     centroid's float64 score is no worse than any unchosen one's, and the
     chosen order holds, within d * eps_f32 * (max |q|^2 + max |c|^2), the
     f32 tolerance of a dot summed in another order; and ids differ from
-    the plain version's (a cuBLAS GEMM) in few rows, only at near-ties."""
+    the plain version's (a cuBLAS GEMM) in few rows, only at near-ties.
+    The graph route's shape takes p 1."""
     dev = _card()
-    Q, L, b, d = shape
+    Q, L, b, d, p = shape
     c, csq, q, qsq = _on(dev, *_case(15, Q, L, b, d,
                                      normal_rows=metric is Metric.IP))
-    got = R.route_topk(c, csq, q, qsq, 8, metric)
-    want = R.route_topk_reference(c, csq, q, qsq, 8, metric)
+    got = R.route_topk(c, csq, q, qsq, p, metric)
+    want = R.route_topk_reference(c, csq, q, qsq, p, metric)
     tol = d * np.finfo(np.float32).eps * (
         (q * q).sum(1).max().item() + (c * c).sum(-1).max().item())
     worst, order = _f64_gap(got, c, q, metric)

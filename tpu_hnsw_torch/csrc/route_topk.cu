@@ -1,32 +1,41 @@
 // Query-centroid routing for Hopper (sm_90a): f32 scores with each row's
 // exact top-p fused, so the score matrix never reaches device memory.
 //
-// Replaces no Pallas kernel. The reference routes with an XLA dot and
-// top_k (tpu_hnsw/index/block.py::_route_exact_body, block.py:287-306; the
-// stacked searcher of tpu_hnsw/parallel/partition.py routes the same way
-// over its stacked centroids), which the port served as a cuBLAS f32 GEMM
-// writing a [Q, L * b] score matrix, elementwise passes over it and
-// torch.topk's radix select reading it again, to keep p ids of each row.
+// Replaces no Pallas kernel. It serves two routes that the reference runs
+// as an XLA dot and top_k, which the port served as a cuBLAS f32 GEMM
+// writing a score matrix, elementwise passes over it and torch.topk's
+// radix select reading it again:
+// - the block engine's route (tpu_hnsw/index/block.py::_route_exact_body,
+//   block.py:287-306; the stacked searcher of tpu_hnsw/parallel/
+//   partition.py routes the same way over its stacked centroids): p ids of
+//   each [Q, L * b] row, p 8 in the cells;
+// - the graph engine's dense route over its level >= 1 elements
+//   (tpu_hnsw/index/search.py::_scan_seeds_body, search.py:405-442; the
+//   port's index/search.py::_scan_seeds_body passes the gathered upper
+//   vectors as one group with its live count): one seed of each [Q, U] row
+//   at descent_ef 1, U ~62,400 at SIFT-1M, a 1.02 GB score matrix before.
 //
 // What it computes: for query q, group l (L groups of b centroids: L = 1
-// for BlockHnswIndex, the P / R stacked partitions for ShardedBlockSearcher)
-// and centroid n < live[l],
+// for BlockHnswIndex and the graph route, the P / R stacked partitions for
+// ShardedBlockSearcher) and centroid n < live[l],
 //   L2:      (q_sq[q] + c_sq[l, n]) - 2 * dot
 //   IP/cos:  -dot
 // with dot the f32 query . f32 centroid, f32 FMAs on the CUDA cores in k
-// order (no TF32): only the summation order differs from a library GEMM.
+// order (no TF32): only the summation order differs from a library GEMM
+// (at p 1 the L2 sum starts at -c_sq / 2 and the score is q_sq - 2 * sum).
 // Each (q, l) row keeps its p smallest keys (ordered score bits << 32 | n),
 // ascending, so ties go to the lower index and -0 counts as +0; ids out
 // [Q, L, p] int64 are n + l * off, and -1 past the row's live centroids.
 //
 // What bounds it: operations. 2 * Q * L * b * d f32 FLOPs (32.3 GFLOP at
-// the stacked DEEP-10M shape, 0.48 ms at 67 TFLOP/s) against the queries and
-// centroids read once (a few MB): two orders above the card's f32
-// operations-per-byte line once the score matrix (672 MB there) is gone.
+// the stacked DEEP-10M shape, 0.48 ms at 67 TFLOP/s; 65.4 GFLOP at the
+// graph route's 4,096 x 62,400 x 128, 0.98 ms) against the queries and
+// centroids read once (tens of MB): two orders above the card's f32
+// operations-per-byte line once the score matrix (672 MB; 1.02 GB) is gone.
 //
 // Design (route_topk_tile): a CTA of 8 warps scores a tile of 128 queries
 // against one range of one group's centroids, 128 at a time; two CTAs an
-// SM at p up to about 30 (shared memory), one above.
+// SM (registers; shared memory too above p of about 30).
 // - Operands stream through a 2-stage cp.async ring of 32-wide k chunks of
 //   both the query tile and the centroid tile (rows padded to 36 floats, so
 //   the float4 reads below are free of bank conflicts); a chunk's 4,096
@@ -36,35 +45,51 @@
 //   half-warp owns 8 query rows of the tile (rows 2i + h of its warp's 16)
 //   and all 128 centroids of each, so a row's selection stays inside one
 //   half-warp.
-// - Epilogue: each row keeps its running top-p, sorted, in shared memory;
-//   its last entry is the threshold. An unrolled pass flags the rows whose
-//   lane minimum may beat it (the flagged share falls as ~p / tiles seen);
-//   for each flagged row the half-warp computes its keys and keeps those
-//   below the threshold in the row's slots (up to 24, by an atomic count).
-//   A row that kept keys is merged into its list (each key placed by its
-//   rank: a binary search in the list and a count over the slots) at the
-//   end of the tile, so the next tile meets the newest threshold (merging
-//   only when the slots were half full flagged more rows under a staler
-//   threshold: 1% slower at the stacked DEEP-10M shape, 3.5% at SIFT-1M's,
-//   p 8, H100). A range's first tile bounds the threshold at once for
-//   p <= 16 (the p-th smallest of the 16 lanes' minima), so about p keys
-//   take slots, not 128.
-// - Where the time goes (clock counters of warp time at the stacked
-//   DEEP-10M shape, p 8, on an H100): the FMA loop 42%, the flagged rows
-//   23%, merges 13%, the ring's barrier 14%, the flag pass 7%. With the
-//   epilogue stubbed out the kernel takes 0.90 ms there against 1.30 (the
-//   bound is 0.48). The epilogue is bound by its instruction count (about
-//   1,400 a warp a tile beside 6,600 of the FMA loop), not by the barrier:
-//   a ring refilled by the last warp to release a stage, with no block
-//   barrier, was slower with TMA (the swizzle's address arithmetic) and
-//   with cp.async (1.69 ms, 1.30 with the epilogue stubbed out: one warp
-//   issuing a stage's 2,048 copies); 255 registers at one CTA an SM took
-//   1.62 ms.
+// - Epilogue, p >= 2: each row keeps its running top-p, sorted, in shared
+//   memory; its last entry is the threshold. An unrolled pass flags the
+//   rows whose lane minimum may beat it (the flagged share falls as ~p /
+//   tiles seen); for each flagged row the half-warp computes its keys and
+//   keeps those below the threshold in the row's slots (up to 24, by an
+//   atomic count). A row that kept keys is merged into its list (each key
+//   placed by its rank: a binary search in the list and a count over the
+//   slots) at the end of the tile, so the next tile meets the newest
+//   threshold (merging only when the slots were half full flagged more
+//   rows under a staler threshold: 1% slower at the stacked DEEP-10M shape,
+//   3.5% at SIFT-1M's, p 8, H100). A range's first tile bounds the
+//   threshold at once for p <= 16 (the p-th smallest of the 16 lanes'
+//   minima), so about p keys take slots, not 128.
+// - Epilogue, p == 1 (route_topk_tile<VEC, true>, chosen by p): no lists,
+//   slots, atomics or merges, one key a row (top1_flags, top1_keep). The
+//   L2 sums start at -c_sq / 2 (the tile's norms come with its first
+//   chunk), so a row's best score here is that of its largest sum: the flag
+//   pass is 8 fmaxf, one fma and one compare a row, against ~3 operations
+//   a score when each is formed; only flagged rows form scores, and a
+//   half-warp's shuffles take its smallest key. At the graph route's shape
+//   on an H100: 1.987 ms (49.1% of the bound; the survivor epilogue took
+//   2.032 there, the GEMM + top-k chain 8.01). With its epilogue stubbed
+//   out the kernel takes 1.777. Slower designs measured there: each lane's
+//   running best of each row in shared memory or registers, every score
+//   formed and compared (2.10-2.23, spilling at the 128-register cap); the
+//   same flags from formed scores (2.05-2.06; 2.08 without the full-tile
+//   instantiation; 2.11 with half-warp loops); the rows in a loop that is
+//   not unrolled (2.24, spilling). The time follows the code's size as much
+//   as its instruction count (the FMA loop shares the instruction cache).
+// - Where the time goes at p 8 (clock counters of warp time at the stacked
+//   DEEP-10M shape, on an H100): the FMA loop 42%, the flagged rows 23%,
+//   merges 13%, the ring's barrier 14%, the flag pass 7%. With the epilogue
+//   stubbed out the kernel takes 0.90 ms there against 1.30 (the bound is
+//   0.48). The epilogue is bound by its instruction count (about 1,400 a
+//   warp a tile beside 6,600 of the FMA loop), not by the barrier: a ring
+//   refilled by the last warp to release a stage, with no block barrier,
+//   was slower with TMA (the swizzle's address arithmetic) and with
+//   cp.async (1.69 ms, 1.30 with the epilogue stubbed out: one warp issuing
+//   a stage's 2,048 copies); 255 registers at one CTA an SM took 1.62 ms.
 // - The split over centroids follows the shape (ops/route.py::split_count):
 //   the fewest ranges whose CTAs fill 90% of the card's CTA slots (SMs x
 //   CTAs an SM holds). The SIFT-1M shape's 32 query tiles take 9 ranges of
 //   4 tiles (0.2185 ms, against 0.287 at 4 ranges), the stacked DEEP-10M
-//   shape's 256 CTAs none, 32 interactive queries 33 ranges of one tile.
+//   shape's 256 CTAs none, 32 interactive queries 33 ranges of one tile,
+//   the graph route's 32 query tiles 8 ranges of 61 tiles (256 CTAs).
 //   With more than one range each CTA writes its rows' p keys to scratch,
 //   and route_topk_reduce (a warp a row, two list heads a lane) takes the p
 //   smallest of the S sorted lists.
@@ -153,6 +178,11 @@ __host__ __device__ inline int tile_smem(int p, int slots) {
          (kTM * p + kTM * slots + kHalves * p) * 8;
 }
 
+// Shared memory of the top-1 instantiation: the ring, its tile norms, the
+// query norms, and each row's best key.
+constexpr int kTop1Smem =
+    (kStages * kStageFloats + kStages * kTN + kTM) * 4 + kTM * 8;
+
 // One CTA's place: its query tile, group and range.
 struct Range {
   int q0, l, s, lo, hi;
@@ -162,9 +192,9 @@ struct Range {
 
 // Enqueues chunk g (tile g / kch, k chunk g % kch) into a stage: the
 // query tile's and the centroid tile's 32-wide k slices, and with a tile's
-// last chunk its centroid norms. VEC 16 copies 16 bytes (d % 4 == 0, rows
-// 16-byte aligned), else 4.
-template <int VEC>
+// last chunk (TOP1: its first) its centroid norms. VEC 16 copies 16 bytes
+// (d % 4 == 0, rows 16-byte aligned), else 4.
+template <int VEC, bool TOP1>
 __device__ __forceinline__ void enqueue(const Args& a, const Range& r, int g,
                                       int kch, float* st, float* st_csq) {
   const int tid = threadIdx.x;
@@ -194,7 +224,7 @@ __device__ __forceinline__ void enqueue(const Args& a, const Range& r, int g,
     else
       cp4(dst, src, ok ? 4 : 0);
   }
-  if (kc == kch - 1 && tid < kTN) {
+  if (kc == (TOP1 ? 0 : kch - 1) && tid < kTN) {
     const int n = n0 + tid;
     const bool ok = n < r.hi;
     cp4(st_csq + tid, ok ? r.csq + n : a.c_sq, ok ? 4 : 0);
@@ -301,16 +331,96 @@ __device__ __forceinline__ void merge_row(u64* list, const u64* buf,
   for (int j = c; j < p; j += 16) list[j] = tmp[j];
 }
 
-template <int VEC>
+// The top-1 epilogue (p == 1). Its tile's sums start at -c_sq / 2 for L2
+// (exact; 0 for -dot), so each score is one fma(mul, sum, qs) (mul -2 and
+// the query's norm for L2, -1 and 0 for -dot: never -0) and decreases as
+// the sum grows: a row's smallest score here is that of its largest sum,
+// and no score is formed until it may win. Each row's best key so far,
+// (ordered score bits << 32) | centroid, sits in shared memory; its score
+// bits are the row's threshold.
+// Pass 1 (unrolled): a bit for each of the lane's rows whose largest sum
+// here scores below the row's threshold: 8 fmaxf, one fma and a compare a
+// row (a share that falls as ~2 / tiles seen a warp). ALL: every column of
+// the tile is live.
+template <bool ALL>
+__device__ __forceinline__ unsigned top1_flags(
+    const float (&acc)[8][8], const float* s_qsq, float mul, unsigned valid,
+    int w, int h, const u64* s_best) {
+  unsigned beat = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = 16 * w + h + 2 * i;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx = fmaxf(mx, ALL || ((valid >> j) & 1u) ? acc[i][j] : -INFINITY);
+    const float m = __fmaf_rn(mul, mx, s_qsq[row]);
+    if ((ALL || valid != 0) &&
+        ordered(m) < static_cast<uint32_t>(s_best[row] >> 32))
+      beat |= 1u << i;
+  }
+  return beat;
+}
+
+// Pass 2, for a row some lane of the warp flagged, in code written once: a
+// flagged lane scores its 8 columns and takes the lowest of the smallest
+// score, the half-warp the smallest of its 16 keys by shuffles, kept if
+// below the row's key. A later tile's equal score, at a higher index,
+// never replaces the kept one.
+__device__ __forceinline__ void top1_keep(const float (&acc)[8][8], int i,
+                                          bool flagged, const float* s_qsq,
+                                          float mul, unsigned valid, int n,
+                                          int w, int h, int c, u64* s_best) {
+  const int row = 16 * w + h + 2 * i;
+  float v[8];
+  switch (i) {
+    case 0: take_row<0>(acc, v); break;
+    case 1: take_row<1>(acc, v); break;
+    case 2: take_row<2>(acc, v); break;
+    case 3: take_row<3>(acc, v); break;
+    case 4: take_row<4>(acc, v); break;
+    case 5: take_row<5>(acc, v); break;
+    case 6: take_row<6>(acc, v); break;
+    default: take_row<7>(acc, v); break;
+  }
+  const float qs = s_qsq[row];
+  const u64 cur = s_best[row];
+  u64 key = kEmpty;
+  if (flagged) {
+    float m = INFINITY;
+    int at = -1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float sc = __fmaf_rn(mul, v[j], qs);
+      if (((valid >> j) & 1u) && (at < 0 || sc < m)) {
+        m = sc;
+        at = j;
+      }
+    }
+    key = (static_cast<u64>(ordered(m)) << 32) |
+          static_cast<uint32_t>(n + 16 * at);
+  }
+#pragma unroll
+  for (int x = 8; x > 0; x >>= 1) {
+    const u64 o = __shfl_xor_sync(0xffffffffu, key, x, 16);
+    key = o < key ? o : key;
+  }
+  if (c == 0 && key < cur) s_best[row] = key;
+}
+
+template <int VEC, bool TOP1>
 __global__ void __launch_bounds__(kThreads, 2) route_topk_tile(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* stages = reinterpret_cast<float*>(smem);
   float* s_csq = stages + kStages * kStageFloats;  // [kStages][kTN]
   float* s_qsq = s_csq + kStages * kTN;            // [kTM]
+  // p > 1
   int* s_cnt = reinterpret_cast<int*>(s_qsq + kTM);  // [kTM]
   u64* s_list = reinterpret_cast<u64*>(s_cnt + kTM);  // [kTM][p]
   u64* s_slot = s_list + kTM * a.p;                   // [kTM][slots]
   u64* s_tmp = s_slot + kTM * a.slots;                // [kHalves][p]
+  // p == 1: each row's best key so far
+  u64* s_best = reinterpret_cast<u64*>(s_qsq + kTM);  // [kTM]
 
   const int tid = threadIdx.x;
   const int w = tid >> 5, lane = tid & 31, h = lane >> 4, c = lane & 15;
@@ -335,13 +445,17 @@ __global__ void __launch_bounds__(kThreads, 2) route_topk_tile(const Args a) {
   const int kch = (a.d + kKC - 1) / kKC;
   const int G = ntiles * kch;
 
-  for (int e = tid; e < kTM * p; e += kThreads) s_list[e] = kEmpty;
+  if constexpr (TOP1) {
+    for (int e = tid; e < kTM; e += kThreads) s_best[e] = kEmpty;
+  } else {
+    for (int e = tid; e < kTM * p; e += kThreads) s_list[e] = kEmpty;
+  }
   for (int e = tid; e < kTM; e += kThreads) {
     const i64 q = static_cast<i64>(r.q0) + e;
     s_qsq[e] = a.l2 && q < a.Q ? a.q_sq[q] : 0.0f;
-    s_cnt[e] = 0;
+    if (!TOP1) s_cnt[e] = 0;
   }
-  if (G > 0) enqueue<VEC>(a, r, 0, kch, stages, s_csq);
+  if (G > 0) enqueue<VEC, TOP1>(a, r, 0, kch, stages, s_csq);
   cp_commit();
 
   u64* tmp = s_tmp + (2 * w + h) * p;
@@ -350,16 +464,20 @@ __global__ void __launch_bounds__(kThreads, 2) route_topk_tile(const Args a) {
     cp_wait_all();
     __syncthreads();
     if (g + 1 < G)
-      enqueue<VEC>(a, r, g + 1, kch,
-                   stages + ((g + 1) & 1) * kStageFloats,
-                   s_csq + ((g + 1) & 1) * kTN);
+      enqueue<VEC, TOP1>(a, r, g + 1, kch,
+                         stages + ((g + 1) & 1) * kStageFloats,
+                         s_csq + ((g + 1) & 1) * kTN);
     cp_commit();
     const int t = g / kch, kc = g - t * kch;
     if (kc == 0) {
+      // top-1 L2: each sum starts at -c_sq / 2 (top1_flags)
+      const float* csq0 = s_csq + (g & 1) * kTN;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < 8; ++j) {
+        const float init = TOP1 && a.l2 ? -0.5f * csq0[c + 16 * j] : 0.0f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+        for (int i = 0; i < 8; ++i) acc[i][j] = init;
+      }
     }
     const float* st = stages + (g & 1) * kStageFloats;
     const float* A = st + (16 * w + h) * kKCP;  // rows 16w + h + 2i
@@ -391,6 +509,26 @@ __global__ void __launch_bounds__(kThreads, 2) route_topk_tile(const Args a) {
       }
     }
     if (kc != kch - 1) continue;
+
+    if constexpr (TOP1) {
+      const int n = r.lo + t * kTN + c;
+      unsigned valid = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) valid |= (n + 16 * j < r.hi) << j;
+      const float mul = a.l2 ? -2.0f : -1.0f;
+      const unsigned beat =
+          valid == 0xffu
+              ? top1_flags<true>(acc, s_qsq, mul, valid, w, h, s_best)
+              : top1_flags<false>(acc, s_qsq, mul, valid, w, h, s_best);
+      unsigned rows = __reduce_or_sync(0xffffffffu, beat);
+      while (rows != 0) {
+        const int i = __ffs(rows) - 1;
+        rows &= rows - 1;
+        top1_keep(acc, i, (beat >> i) & 1u, s_qsq, mul, valid, n, w, h, c,
+                  s_best);
+      }
+      continue;
+    }
 
     // the tile's epilogue. An unrolled pass flags each of the lane's rows
     // whose smallest score here may beat the row's threshold; each half-warp
@@ -488,6 +626,20 @@ __global__ void __launch_bounds__(kThreads, 2) route_topk_tile(const Args a) {
 
   // each half-warp writes its own rows
   const i64 base = static_cast<i64>(r.l) * a.off;
+  if constexpr (TOP1) {
+    // lane i of a half-warp writes row i's key
+    const int row = 16 * w + h + 2 * c;
+    const i64 q = static_cast<i64>(r.q0) + row;
+    if (c < 8 && q < a.Q) {
+      const u64 key = s_best[row];
+      const i64 at = q * a.L + r.l;
+      if (a.S == 1)
+        a.out[at] = decode(key, base);
+      else
+        a.keys[at * a.S + r.s] = key;
+    }
+    return;
+  }
   for (int i = 0; i < 8; ++i) {
     const int row = 16 * w + h + 2 * i;
     const i64 q = static_cast<i64>(r.q0) + row;
@@ -543,11 +695,11 @@ __global__ void __launch_bounds__(kRedWarps * 32)
   }
 }
 
-// Lets route_topk_tile<VEC> take up to kSmemMax bytes of dynamic shared
+// Lets route_topk_tile<VEC, TOP1> take up to kSmemMax bytes of dynamic shared
 // memory on the current device, with the whole carveout as shared memory
 // (so that two CTAs of a narrow p fit an SM): once a device, as the
 // attributes hold per device.
-template <int VEC>
+template <int VEC, bool TOP1>
 int allow_smem() {
   static std::atomic<unsigned long long> raised{0};  // a bit a device
   int dev = -1;
@@ -556,10 +708,11 @@ int allow_smem() {
   const bool track = dev >= 0 && dev < 64;
   if (track && ((raised.load() >> dev) & 1ull)) return 0;
   err = cudaFuncSetAttribute(
-      route_topk_tile<VEC>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      route_topk_tile<VEC, TOP1>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
       static_cast<int>(cudaSharedmemCarveoutMaxShared));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(route_topk_tile<VEC>,
+    err = cudaFuncSetAttribute(route_topk_tile<VEC, TOP1>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemMax);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -575,11 +728,16 @@ int slots_for(int p) {
   return slots;
 }
 
-template <int VEC>
-int launch_tile(const Args& a, unsigned int grid, int smem, cudaStream_t st) {
-  const int err = allow_smem<VEC>();
+// Shared memory a tile CTA takes at width p.
+int smem_for(int p) {
+  return p == 1 ? kTop1Smem : tile_smem(p, slots_for(p));
+}
+
+template <int VEC, bool TOP1>
+int launch_tile(const Args& a, unsigned int grid, cudaStream_t st) {
+  const int err = allow_smem<VEC, TOP1>();
   if (err != 0) return err;
-  route_topk_tile<VEC><<<grid, kThreads, smem, st>>>(a);
+  route_topk_tile<VEC, TOP1><<<grid, kThreads, smem_for(a.p), st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -624,10 +782,12 @@ extern "C" int route_topk_launch(int vec, const float* q, const float* q_sq,
   a.span = span;
   a.l2 = l2;
   a.slots = slots_for(p);
-  const int smem = tile_smem(p, a.slots);
   const unsigned int g = static_cast<unsigned int>(grid);
-  const int err = vec == 16 ? launch_tile<16>(a, g, smem, st)
-                            : launch_tile<4>(a, g, smem, st);
+  const int err =
+      p == 1 ? (vec == 16 ? launch_tile<16, true>(a, g, st)
+                          : launch_tile<4, true>(a, g, st))
+             : (vec == 16 ? launch_tile<16, false>(a, g, st)
+                          : launch_tile<4, false>(a, g, st));
   if (err != 0 || S == 1) return err;
   const i64 rows = Q * L;
   route_topk_reduce<<<static_cast<unsigned int>(
@@ -641,11 +801,12 @@ extern "C" int route_topk_launch(int vec, const float* q, const float* q_sq,
 // negative cudaError_t.
 extern "C" int route_topk_occupancy(int p) {
   if (p < 1 || p > kMaxP) return -static_cast<int>(cudaErrorInvalidValue);
-  const int smem = tile_smem(p, slots_for(p));
-  const int err = allow_smem<16>();
+  const int err = p == 1 ? allow_smem<16, true>() : allow_smem<16, false>();
   if (err != 0) return -err;
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, route_topk_tile<16>, kThreads, smem);
+      &n,
+      p == 1 ? route_topk_tile<16, true> : route_topk_tile<16, false>,
+      kThreads, smem_for(p));
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from tpu_hnsw_torch.config import HnswConfig, Metric
 from tpu_hnsw_torch.index import graph as G
 from tpu_hnsw_torch.index import select as S
-from tpu_hnsw_torch.index.search import _scan_seeds_body, search_layer
+from tpu_hnsw_torch.index.search import (_scan_seeds_body, route_table,
+                                         search_layer)
 from tpu_hnsw_torch.ops import distance as D
 from tpu_hnsw_torch.ops import topk as T
 
@@ -205,9 +206,12 @@ def _live_scan_seeds(g: G.HnswGraph, q, upper_ids, width: int,
     """Each row's ``width`` nearest live level >= 1 elements (dense-scan
     routing with tombstones masked, so a build never links to one), 4,096
     rows at a time (a repair batch of 32k rows would otherwise score an
-    8 GB ``[rows, U]`` matrix at 1M)."""
-    live = torch.where(g.deleted[upper_ids], g.sentinel, upper_ids)
-    return torch.cat([_scan_seeds_body(g, q[s:s + 4096], live, width, metric)
+    8 GB ``[rows, U]`` matrix at 1M). The tombstones become sentinels,
+    moved behind the live ids (:func:`route_table`)."""
+    ids, live = route_table(
+        torch.where(g.deleted[upper_ids], g.sentinel, upper_ids), g.sentinel)
+    return torch.cat([_scan_seeds_body(g, q[s:s + 4096], ids, live, width,
+                                       metric)
                       for s in range(0, q.shape[0], 4096)])
 
 

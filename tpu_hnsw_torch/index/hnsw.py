@@ -268,10 +268,11 @@ class HnswIndex:
         self.n_upper += n_up
         vecs = np.zeros((bpad, x.shape[1]), np.float32)
         vecs[:bsz] = x[order]
+        upper = self._resolve_route("auto")
         self.graph = B.insert_wave(
             self.graph, self.cfg, torch.from_numpy(vecs).to(self.device),
             ids, lv, slots, bsz, self.entry, self.entry_level,
-            upper_ids=self._resolve_route("auto"))
+            upper_ids=None if upper is None else upper[0])
         self.n += bsz
         if int(lv_sorted[0]) > self.entry_level:
             self.entry = int(ids[0])
@@ -279,9 +280,11 @@ class HnswIndex:
         self._touch()
 
     # ---------------------------------------------------------------- search
-    def _upper_ids_dev(self) -> torch.Tensor:
-        """Ids of the level >= 1 elements, ascending, sentinel padded to a
-        multiple of 256: the dense-routing subset, cached per epoch."""
+    def _route_table(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The dense route's table (``search.route_table``): ids of the
+        level >= 1 elements, ascending, sentinel padded to a multiple of
+        256, and their ``[1]`` int32 count, made on the device; cached per
+        epoch, so a search reads nothing back for it."""
         cache = self._route_cache
         if cache is not None and cache[0] == self._epoch:
             return cache[1]
@@ -290,11 +293,13 @@ class HnswIndex:
         ids = torch.nonzero(g.levels[: g.cap] >= 1).reshape(-1)[:upad]
         ids = torch.nn.functional.pad(ids.to(torch.int32),
                                       (0, upad - ids.shape[0]), value=g.cap)
-        self._route_cache = (self._epoch, ids)
-        return ids
+        table = SE.route_table(ids, g.sentinel)
+        self._route_cache = (self._epoch, table)
+        return table
 
     def _resolve_route(self, route: str):
-        """None -> greedy descent; the upper ids -> dense-scan routing."""
+        """None -> greedy descent; the route table (ids, live count) ->
+        dense-scan routing."""
         if route not in ("auto", "scan", "descent"):
             raise ValueError("route must be auto, scan, or descent")
         if route == "descent" or self.cfg.metric is Metric.L1 \
@@ -302,7 +307,7 @@ class HnswIndex:
             return None
         if route == "auto" and self.n_upper < self.ROUTE_SCAN_MIN_UPPER:
             return None
-        return self._upper_ids_dev()
+        return self._route_table()
 
     def _filter_device(self, filter_mask) -> torch.Tensor:
         """``[cap+1]`` bool mask from a per-id filter (True = allowed): a
@@ -346,6 +351,7 @@ class HnswIndex:
         with annotate("queries") as qspan:
             q = self._queries(queries)
             qspan.work = q.shape[0]
+        upper_ids, upper_live = self._resolve_route(route) or (None, None)
         return SE.search(
             self.graph, q, entry=max(self.entry, 0),
             entry_level=max(self.entry_level, 0), k=k,
@@ -354,7 +360,7 @@ class HnswIndex:
             descent_ef=(self.cfg.descent_ef if descent_ef is None
                         else descent_ef),
             max_steps=max_steps, with_counters=with_counters,
-            upper_ids=self._resolve_route(route),
+            upper_ids=upper_ids, upper_live=upper_live,
             allowed=(None if filter_mask is None
                      else self._filter_device(filter_mask)))
 
@@ -480,9 +486,9 @@ class HnswIndex:
             # re-runs HnswFindElementNeighbors from the entry; level 0 of a
             # big graph takes the dense-scan seeds, as inserts do
             # (build.py::insert_wave)
-            upper_ids = self._resolve_route("auto") if lc == 0 else None
-            if upper_ids is not None:
-                seeds = B._live_scan_seeds(g, qj, upper_ids,
+            upper = self._resolve_route("auto") if lc == 0 else None
+            if upper is not None:
+                seeds = B._live_scan_seeds(g, qj, upper[0],
                                            self.cfg.ef_construction, metric)
             else:
                 seeds = SE.descend_seeds(g, qj, self.entry, self.entry_level,

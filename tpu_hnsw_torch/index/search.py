@@ -39,6 +39,7 @@ from tpu_hnsw_torch.config import Metric
 from tpu_hnsw_torch.index import graph as G
 from tpu_hnsw_torch.ops import beam as B
 from tpu_hnsw_torch.ops import distance as D
+from tpu_hnsw_torch.ops import route as R
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.utils.profiling import annotate, tracing
 
@@ -302,29 +303,47 @@ def search_resume(g: G.HnswGraph, queries: torch.Tensor, state, *, ef: int,
         init_state=state, reset_frontier=True)
 
 
+def route_table(ids: torch.Tensor, sentinel: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense route's table from sentinel-padded upper ids ``[U]`` int32:
+    (the ids with their sentinels moved behind the live ones, which keep
+    their order; the ``[1]`` int32 count of live ids), both made on the
+    device, with no host read."""
+    pad = ids == sentinel
+    order = torch.argsort(pad.to(torch.uint8), stable=True)
+    return ids[order], (~pad).sum(dtype=torch.int32).reshape(1)
+
+
 def _scan_seeds_body(g: G.HnswGraph, q: torch.Tensor, upper_ids: torch.Tensor,
-                     descent_ef: int, metric: Metric) -> torch.Tensor:
+                     live: torch.Tensor, descent_ef: int,
+                     metric: Metric) -> torch.Tensor:
     """Dense routing over the level >= 1 subset in place of greedy descent:
-    one ``[Q, U]`` GEMM and a top-k finds each query's nearest upper
-    elements exactly (search.py:405-442). ``upper_ids`` ``[U]`` int32,
-    sentinel padded. Returns seeds ``[Q, descent_ef]``."""
+    each query's ``descent_ef`` nearest upper elements exactly, scored as
+    one ``[Q, U]`` product would score them (search.py:405-442).
+    ``upper_ids`` ``[U]`` int32 and ``live`` ``[1]`` int32 are a
+    :func:`route_table`: live ids first, only sentinels past them. The
+    route is ``ops/route.py::route_topk`` over the gathered vectors as one
+    group of ``live`` centroids: on the card the route kernel up to its
+    ``MAX_P`` (no score matrix), the GEMM + top-k chain wider (the build's
+    ``ef_construction``). Returns seeds ``[Q, descent_ef]`` (at most U)."""
     if metric is Metric.L1:
         raise NotImplementedError("L1 routing has no matmul form")
     v, v_sq = G.gather_vectors(g, upper_ids)
-    dots = q.float() @ v.float().T
-    if metric is Metric.L2:
-        sc = D.squared_norms(q)[:, None] + v_sq[None, :] - 2.0 * dots
-    else:  # IP / cosine (vectors pre-normalised)
-        sc = -dots
-    sc = torch.where(upper_ids[None, :] == g.sentinel, torch.inf, sc)
-    kk = min(descent_ef, sc.shape[1])
-    ti = T.topk_smallest_fast(sc, kk)[1]
+    q = q.contiguous()
+    ti = R.route_topk(v, v_sq, q, D.squared_norms(q),
+                      min(descent_ef, upper_ids.shape[0]), metric,
+                      live=live)[:, 0]
+    # -1 (no live column left) reads the table's last id, a sentinel: a row
+    # has fewer live columns than it asks for only when live < U
     return upper_ids[ti]
 
 
 def scan_seeds(g: G.HnswGraph, q: torch.Tensor, upper_ids: torch.Tensor, *,
                descent_ef: int = 8, metric: Metric = Metric.L2):
-    return _scan_seeds_body(g, q.to(g.vectors.dtype), upper_ids, descent_ef,
+    """:func:`_scan_seeds_body` over sentinel-padded ``upper_ids``, their
+    sentinels anywhere (tests/tools)."""
+    return _scan_seeds_body(g, q.to(g.vectors.dtype),
+                            *route_table(upper_ids, g.sentinel), descent_ef,
                             metric)
 
 
@@ -365,10 +384,14 @@ def _count_beam(g: G.HnswGraph, seeds: torch.Tensor, hist: torch.Tensor,
 def search(g: G.HnswGraph, queries: torch.Tensor, *, entry: int,
            entry_level: int, k: int, ef_search: int, metric: Metric,
            expand: int = 1, max_steps: int = 0, descent_ef: int = 1,
-           with_counters: bool = False, upper_ids=None, allowed=None):
+           with_counters: bool = False, upper_ids=None, upper_live=None,
+           allowed=None):
     """Full query search (pgvector's ``GetScanItems``): upper-level routing
     (greedy descent, or the dense scan of the level >= 1 subset when
-    ``upper_ids`` is given) then the ef_search-bounded level-0 beam.
+    ``upper_ids`` is given: :func:`_scan_seeds_body`) then the
+    ef_search-bounded level-0 beam. ``upper_live``: the live count of an
+    ``upper_ids`` that is already a :func:`route_table` (``HnswIndex``
+    caches one an epoch); None: the table is made here.
     Returns (scores ``[Q, k]`` ascending, ids ``[Q, k]``), plus per-query
     (hops, dist_evals) with ``with_counters``. The level-0 beam takes the
     path :func:`~tpu_hnsw_torch.ops.beam.path` picks."""
@@ -382,8 +405,10 @@ def search(g: G.HnswGraph, queries: torch.Tensor, *, entry: int,
     nq = q.shape[0]
     if upper_ids is not None and metric is not Metric.L1:
         with annotate("route_scan", nq):
-            seeds = _scan_seeds_body(g, q, upper_ids, max(descent_ef, 1),
-                                     metric)
+            if upper_live is None:
+                upper_ids, upper_live = route_table(upper_ids, g.sentinel)
+            seeds = _scan_seeds_body(g, q, upper_ids, upper_live,
+                                     max(descent_ef, 1), metric)
     else:
         with annotate("descend", nq):
             seeds = _descend_body(g, q, entry, entry_level, 0, metric,

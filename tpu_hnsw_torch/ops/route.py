@@ -2,8 +2,10 @@
 
 The exact route of the block engine (``index/block.py``'s
 ``BlockHnswIndex.search_device``, port of ``tpu_hnsw/index/block.py::
-_route_exact_body``) and of the stacked searcher (``parallel/
-partition.py::ShardedBlockSearcher._route``): f32 scores of every query
+_route_exact_body``), of the stacked searcher (``parallel/
+partition.py::ShardedBlockSearcher._route``) and the graph engine's dense
+route over its level >= 1 elements (``index/search.py::_scan_seeds_body``,
+at ``p`` = ``descent_ef``, 1 by default): f32 scores of every query
 against every live centroid and each (query, group) row's ``p`` best,
 ascending by (score, index).
 
@@ -11,8 +13,8 @@ Two paths, picked by dtype and shape (:func:`fused`):
 
 - ``"fused"``: f32 centroids and ``p <= MAX_P``. On a CUDA tensor the kernel
   of ``csrc/route_topk.cu`` scores and selects in one pass (no ``[Q, L*b]``
-  score matrix); on a CPU tensor its plain version,
-  :func:`route_topk_reference`.
+  score matrix; at p 1 with its own top-1 epilogue); on a CPU tensor its
+  plain version, :func:`route_topk_reference`.
 - ``"gemm_topk"``: any other call (bf16 centroids, wider ``p``): the
   library GEMM (:func:`centroid_scores`), then ``topk_smallest_fast``.
 
@@ -129,7 +131,8 @@ def route_topk_reference(centroids, c_sq, q, q_sq, p: int, metric: Metric,
 @functools.lru_cache(maxsize=None)
 def _slots(index: int, p: int) -> int:
     """CTAs of the tile kernel the card holds at once at width ``p``: its
-    SMs times the CTAs an SM holds (two below p of about 30, one above)."""
+    SMs times the CTAs an SM holds (two up to p of about 30, the top-1
+    instantiation's too, registers bounding both; one above)."""
     per_sm = _library().route_topk_occupancy(p)
     if per_sm < 1:
         raise RuntimeError(f"route_topk_occupancy failed: {per_sm}")
@@ -143,7 +146,8 @@ def split_count(Q: int, L: int, b: int, p: int, slots: int) -> int:
     else the most, a tile each. A row's ranges are at most ``MAX_SPLIT``
     and hold at most ``SPLIT_KEYS`` keys together. (Measured on an H100 at
     p 8: SIFT-1M's 32 query tiles x 33 tiles take 0.2185 ms at 9 ranges,
-    0.287 at 4 and 0.225 at 17; DEEP-10M's 256 CTAs are fastest unsplit.)"""
+    0.287 at 4 and 0.225 at 17; DEEP-10M's 256 CTAs are fastest unsplit.
+    The graph route's 32 query tiles x 488 tiles take 8 ranges at p 1.)"""
     tiles = -(-b // TILE)
     rows = -(-Q // TILE) * L
     best = 1

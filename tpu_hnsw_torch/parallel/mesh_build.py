@@ -176,7 +176,7 @@ def _connect(g, cfg, q, ids, slots, pool_d, pool_i, live_n, level: int,
 
 def _upper_ids(g, p: int, cap: int, n_upper: int) -> torch.Tensor:
     """Partition p's level >= 1 elements as union ids, ascending, padded
-    with the union sentinel as ``HnswIndex._upper_ids_dev`` pads them."""
+    with the union sentinel as ``HnswIndex._route_table`` pads them."""
     upad = max(-(-n_upper // 256) * 256, 256)
     lv = g.levels[p * cap:(p + 1) * cap]
     ids = torch.nonzero(lv >= 1).reshape(-1)[:upad].to(torch.int32) + p * cap
