@@ -5,15 +5,21 @@ roots, work counts, children inside their parents); results
 bit-identical with a sink open and closed;
 no sink, no record and the shared no-op; and, under ``trace()`` and
 ``record()`` together, each span within 1 ms of its ``record_function``
-range on the exported trace's clock. ``test_expand_range_on_card``
-checks on a card that the traced ``expand`` range still spans the
-kernels of ``stage1`` and ``rerank``:
+range on the exported trace's clock; a bf16 copy's traced ``expand`` and
+``route`` ranges opened on the device by ``profiling.mark`` before their
+children, and no operation added outside a trace; the partitioned build's
+``partition_build`` spans. ``test_expand_range_on_card`` checks on a card
+that the traced ``expand`` range still spans the kernels of ``stage1`` and
+``rerank`` (and ``route`` those of ``route_chain`` on a bf16 copy):
 ``python -m pytest --noconftest tests/test_torch_profiling.py -m cuda``."""
 
+import collections
 import json
 
 import pytest
 import torch
+
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpu_hnsw_torch import BlockHnswIndex, HnswConfig, PartitionedHnswIndex
 from tpu_hnsw_torch.io import datasets as DS
@@ -195,21 +201,115 @@ def test_spans_lie_on_the_trace_clock(index, data, tmp_path):
         assert abs(a0 - b0) < 1e3 and abs(a1 - b1) < 1e3
 
 
+def _bf16_index(data, device="cpu"):
+    """A bf16 copy aliasing bf16 rows that need no padding (d = 8): nothing
+    of ``expand``'s own launches before ``stage1``, and the route takes
+    the GEMM + top-k chain."""
+    idx = BlockHnswIndex(HnswConfig(dim=DIM, dtype="bfloat16"),
+                         block_size=BLOCK, device=device)
+    idx.score_dtype = "bf16"
+    idx.build(data[0])
+    assert idx.blocks_score is idx.blocks
+    return idx
+
+
+class _Ops(TorchDispatchMode):
+    """The aten operations run inside it, by name, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "aten":
+            self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _ops(fn) -> list:
+    with _Ops() as mode:
+        fn()
+    return mode.names
+
+
+def test_bf16_ranges_open_before_their_children(data, tmp_path):
+    """Under a trace the bf16 copy's ``expand`` range runs an operation of
+    its own before ``stage1`` and ``route`` one before and after
+    ``route_chain``; with no trace open (a sink or nothing) the request
+    runs the same operations as under the trace less those marks."""
+    idx = _bf16_index(data)
+    q = torch.from_numpy(data[1])
+
+    def search():
+        idx.search_device(q, k=K, probes=PROBES)
+
+    with profiling.record() as rec:
+        search()
+    assert _children(rec.spans, "route") == ["route_chain"]
+    plain = _ops(search)
+    with profiling.record():
+        assert _ops(search) == plain
+    with profiling.trace(str(tmp_path)):
+        traced = _ops(search)
+        one = _ops(lambda: profiling.mark(q.device))
+    assert one and not _ops(lambda: profiling.mark(q.device))
+    # traced = plain with the mark's operations three times
+    marks = collections.Counter(traced) - collections.Counter(plain)
+    assert marks == collections.Counter(one * 3)
+    assert [n for n in traced if n not in one] == \
+        [n for n in plain if n not in one]
+    with open(tmp_path / profiling.TRACE_FILE) as f:
+        events = [ev for ev in json.load(f)["traceEvents"]
+                  if ev.get("ph") == "X"]
+
+    def first(name):
+        return min(ev["ts"] for ev in events if ev.get("name") == name
+                   and ev.get("cat") == "user_annotation")
+
+    ops = [ev["ts"] for ev in events if ev.get("cat") == "cpu_op"]
+    for parent, child in (("expand", "stage1"), ("route", "route_chain")):
+        assert any(first(parent) <= t < first(child) for t in ops), parent
+
+
+def test_partition_build_spans(data):
+    part = PartitionedHnswIndex(HnswConfig(dim=DIM), n_partitions=3,
+                                router="hash", engine="block",
+                                block_size=BLOCK, device="cpu")
+    with profiling.record() as rec:
+        part.build(data[0])
+    spans = rec.spans
+    by = _tree(spans)
+    assert [s.name for s in spans if s.parent < 0] == ["partition_build"] * 3
+    assert _children(spans, "partition_build") == [
+        "balanced_assign", "install", "kmeans"]
+    assert [s.work for s in by["partition_build"]] == [
+        len(p._global_ids) for p in part.parts]
+    assert sum(s.work for s in by["partition_build"]) == len(data[0])
+
+
 @pytest.mark.cuda
-def test_expand_range_on_card(tmp_path):
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_expand_range_on_card(tmp_path, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    # d = 16: the int8 copy needs no padding, as at d = 128
+    # d = 16: neither copy needs padding, as at d = 128 (int8) or 512
     base, q = DS.synthetic_clustered(900, 16, n_queries=64, seed=4)
-    idx = BlockHnswIndex(HnswConfig(dim=16), block_size=BLOCK,
-                         device="cuda").build(base)
+    cfg = HnswConfig(dim=16, dtype="bfloat16" if dtype == "bf16"
+                     else "float32")
+    idx = BlockHnswIndex(cfg, block_size=BLOCK, device="cuda")
+    idx.score_dtype = dtype
+    idx.build(base)
     qt = torch.from_numpy(q).cuda()
     idx.search_device(qt, k=K, probes=PROBES)
     torch.cuda.synchronize()
     with profiling.trace(str(tmp_path)):
         idx.search_device(qt, k=K, probes=PROBES)
-    names = ("route", "expand", "stage1", "rerank")
+    names = ("route", "expand", "stage1", "rerank", "route_chain")
     r = profiling.range_times(str(tmp_path / profiling.TRACE_FILE), names)
-    assert all(r[n]["span_ms"] > 0 and r[n]["count"] == 1 for n in names)
+    assert all(r[n]["span_ms"] > 0 and r[n]["count"] == 1
+               for n in names[:4])
     assert r["expand"]["device_ms"] >= \
         r["stage1"]["device_ms"] + r["rerank"]["device_ms"]
+    if dtype == "bf16":  # bf16 centroids: the chain, inside the route
+        assert r["route_chain"]["count"] == 1
+        assert r["route"]["device_ms"] >= r["route_chain"]["device_ms"] > 0

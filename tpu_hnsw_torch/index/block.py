@@ -44,7 +44,7 @@ from tpu_hnsw_torch.ops import route as R
 from tpu_hnsw_torch.ops import topk as T
 from tpu_hnsw_torch.parallel import kmeans as KM
 from tpu_hnsw_torch.utils.device import entry_device
-from tpu_hnsw_torch.utils.profiling import annotate
+from tpu_hnsw_torch.utils.profiling import annotate, mark
 
 #: the kernel loads 16 bytes at a time; scoring-copy rows are padded to it
 ROW_ALIGN_BYTES = 16
@@ -141,7 +141,10 @@ def _expand_step(st: Stored, q, q_sq, bids, *, k: int, metric: Metric,
     regions of their own; the query's padding and quantisation before them
     and the id gather after them stay in the caller's: a traced range gets
     its device extent from the kernels launched directly in it, so these
-    keep the caller's ``expand`` range around both regions' kernels."""
+    keep the caller's ``expand`` range around both regions' kernels.
+    Where neither is needed (a bf16 or f32 copy whose rows need no
+    padding), :func:`~tpu_hnsw_torch.utils.profiling.mark` opens that range
+    on the device before ``stage1``, under a trace alone."""
     nq, p = bids.shape
     S = st.ids.shape[1]
     if not st.two_stage:
@@ -155,6 +158,8 @@ def _expand_step(st: Stored, q, q_sq, bids, *, k: int, metric: Metric,
     if st.scale is not None:
         q8, q_scl = _quantize_rows(qp)
         kw.update(q8=q8, q_scale=q_scl, score_scale=st.scale)
+    elif qp is q:
+        mark(q.device)
     with annotate("stage1", nq * p):
         _, sel = _stage1(st.score, st.sq, st.ids, qp, q_sq, bids, metric, r,
                          **kw)

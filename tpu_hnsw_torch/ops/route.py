@@ -16,7 +16,10 @@ Two paths, picked by dtype and shape (:func:`fused`):
   score matrix; at p 1 with its own top-1 epilogue); on a CPU tensor its
   plain version, :func:`route_topk_reference`.
 - ``"gemm_topk"``: any other call (bf16 centroids, wider ``p``): the
-  library GEMM (:func:`centroid_scores`), then ``topk_smallest_fast``.
+  library GEMM (:func:`centroid_scores`), then ``topk_smallest_fast``,
+  in a ``route_chain`` region (queries), which :func:`~tpu_hnsw_torch.
+  utils.profiling.mark` brackets on the device under a trace, so that the
+  caller's ``route`` range spans it.
 
 Both paths give the same contract: ids ``[Q, L, p]``, -1 past a group's
 live centroids, the stacked offsets folded in.
@@ -35,6 +38,7 @@ import torch
 from tpu_hnsw_torch.config import Metric
 from tpu_hnsw_torch.ops import _nvcc
 from tpu_hnsw_torch.ops import topk as T
+from tpu_hnsw_torch.utils.profiling import annotate, mark
 
 #: the route so far by path: ``"fused"`` counts launches of the kernel's
 #: entry (``route_topk_launch``: ``route_topk_tile``, then
@@ -221,9 +225,13 @@ def route_topk(centroids, c_sq, q, q_sq, p: int, metric: Metric, *,
     the radix top-k's order."""
     if not fused(centroids, p):
         ROUTE_LAUNCHES["gemm_topk"] += 1
-        return route_topk_reference(centroids, c_sq, q, q_sq, p, metric,
-                                    live=live, offset=offset,
-                                    select=T.topk_smallest_fast)
+        mark(q.device)
+        with annotate("route_chain", q.shape[0]):
+            ids = route_topk_reference(centroids, c_sq, q, q_sq, p, metric,
+                                       live=live, offset=offset,
+                                       select=T.topk_smallest_fast)
+        mark(q.device)
+        return ids
     if centroids.device.type == "cpu":
         ROUTE_LAUNCHES["plain"] += 1
         return route_topk_reference(centroids, c_sq, q, q_sq, p, metric,

@@ -66,7 +66,29 @@ def _dup_mask_np(ids: np.ndarray) -> np.ndarray:
 
 
 def _rows_tensor(data, device) -> torch.Tensor:
+    if isinstance(data, torch.Tensor):
+        return data.to(device, torch.float32)
     return torch.from_numpy(np.asarray(data, np.float32)).to(device)
+
+
+#: rows of a device-resident build's input taken into a partition at once
+#: (bounds the f32 temporary of a cosine index's normalisation)
+_TAKE_ROWS = 1 << 18
+
+
+def _take_rows(data: torch.Tensor, rows: np.ndarray, dtype: torch.dtype,
+               normalize: bool) -> torch.Tensor:
+    """Rows ``rows`` of a device tensor as a new ``[len(rows), d]`` tensor
+    of the storage ``dtype``, gathered in steps: unit-normalised in f32
+    first where the metric needs it, so that a bf16 row is rounded once, as
+    the host path's ``_prep`` rounds it."""
+    idx = torch.from_numpy(rows.astype(np.int64)).to(data.device)
+    out = torch.empty((len(rows), data.shape[1]), dtype=dtype,
+                      device=data.device)
+    for s in range(0, len(rows), _TAKE_ROWS):
+        x = data.index_select(0, idx[s:s + _TAKE_ROWS]).float()
+        out[s:s + _TAKE_ROWS] = D.l2_normalize(x) if normalize else x
+    return out
 
 
 class HashRouter:
@@ -129,7 +151,12 @@ class PartitionedHnswIndex:
     ``multi_assign_frac`` (centroid router only): that fraction of rows,
     those with the smallest gap between their nearest and second-nearest
     centroid, is also stored in the second partition; merges drop the
-    replica, which arrives with an identical distance."""
+    replica, which arrives with an identical distance.
+
+    ``score_dtype``, ``rerank_width`` and ``block_slack`` are the block
+    engine's options each partition is built with (``BlockHnswIndex``'s
+    defaults: an int8 scoring copy, rerank 40, slack 1.05); ``"bf16"``
+    aliases bf16 blocks whose rows need no padding."""
 
     #: rows per chunk of the multi-assign scoring (partition.py:194)
     ASSIGN_CHUNK = 262144
@@ -138,14 +165,20 @@ class PartitionedHnswIndex:
                  router: str = "hash", capacity: int | None = None,
                  route_k: int = 0, engine: str = "graph",
                  block_size: int = 256, multi_assign_frac: float = 0.0,
-                 device=None):
+                 device=None, score_dtype: str = "int8",
+                 rerank_width: int = 40, block_slack: float = 1.05):
         if engine not in ("graph", "block"):
             raise ValueError("engine must be graph|block")
+        if _check_score_dtype(score_dtype) is None:
+            raise ValueError("score_dtype must be int8|bf16")
         self.cfg = config
         self.p = n_partitions
         self.route_k = route_k
         self.engine = engine
         self.block_size = block_size
+        self.score_dtype = score_dtype
+        self.rerank_width = int(rerank_width)
+        self.block_slack = float(block_slack)
         self.device = entry_device(device)
         self.router = (HashRouter(n_partitions) if router == "hash"
                        else CentroidRouter(n_partitions, device=self.device))
@@ -181,8 +214,12 @@ class PartitionedHnswIndex:
 
     def _sub(self, rows: int):
         if self.engine == "block":
-            return BlockHnswIndex(self.cfg, block_size=self.block_size,
-                                  device=self.device)
+            sub = BlockHnswIndex(self.cfg, block_size=self.block_size,
+                                 block_slack=self.block_slack,
+                                 device=self.device)
+            sub.score_dtype = self.score_dtype
+            sub.rerank_width = self.rerank_width
+            return sub
         # each shard sized for its own load (+20% insert headroom): centroid
         # partitions can be heavily skewed
         return HnswIndex(self.cfg, capacity=max(64, int(1.2 * rows) + 64),
@@ -196,10 +233,21 @@ class PartitionedHnswIndex:
         single partition, as the reference's ``"auto"`` does); a
         ``torch.distributed`` group or 1-D DeviceMesh of R ranks builds P / R
         partitions a rank in lockstep and hands every rank all P. The block
-        engine ignores ``mesh``."""
+        engine ignores ``mesh``.
+
+        ``data`` is a host array, or a tensor: the block engine builds each
+        partition from a tensor where it lies (its rows taken by
+        :func:`_take_rows`, with no host copy); the graph engine reads it
+        on the host. Each partition's build is a ``partition_build``
+        region (its rows)."""
         if isinstance(mesh, str) and mesh != "auto":
             torch.device(mesh)  # a device's name, or this raises
-        data = np.asarray(data, np.float32)
+        if isinstance(data, torch.Tensor) and self.engine == "block":
+            if data.ndim != 2:
+                raise ValueError("expected an [n, d] tensor of rows")
+        else:
+            data = np.asarray(data.float().cpu() if isinstance(
+                data, torch.Tensor) else data, np.float32)
         n = data.shape[0]
         ids = np.arange(n)
         if (isinstance(self.router, CentroidRouter)
@@ -242,7 +290,11 @@ class PartitionedHnswIndex:
                 sub = self._sub(len(rows))
                 sub._global_ids = rows.astype(np.int32)  # local -> global
                 if len(rows):
-                    sub.build(data[rows])
+                    with annotate("partition_build", len(rows)):
+                        sub.build(data[rows] if isinstance(data, np.ndarray)
+                                  else _take_rows(
+                                      data, rows, sub.dtype,
+                                      self.cfg.metric.needs_normalized))
                 elif self.engine == "graph":
                     sub._ensure_graph(0)  # an empty partition has a graph
                 self.parts.append(sub)

@@ -8,11 +8,15 @@ brackets):
 - search: ``search`` (queries) around the whole of
   ``BlockHnswIndex.search_device`` and ``ShardedBlockSearcher.
   search_device``; inside it ``queries`` (queries: validation and the
-  upload), ``route`` (queries), ``expand`` (queries) with ``stage1``
-  ((query, block) pairs: the stage-1 kernel) and ``rerank`` (candidates:
-  the f32 gather, re-score and top-k), and ``ici_merge`` (the stacked
-  searcher's merge);
-- build: ``kmeans`` (rows sampled) with ``kmeans_sample``,
+  upload), ``route`` (queries) with ``route_chain`` (queries: the GEMM +
+  top-k chain of ``ops/route.py``, where the route kernel does not take
+  the call; ``ROUTE_LAUNCHES["gemm_topk"]`` counts its calls), ``expand``
+  (queries) with ``stage1`` ((query, block) pairs: the stage-1 kernel) and
+  ``rerank`` (candidates: the f32 gather, re-score and top-k), and
+  ``ici_merge`` (the stacked searcher's merge);
+- build: ``partition_build`` (rows) around each partition's build in
+  ``PartitionedHnswIndex.build``; ``kmeans`` (rows sampled) with
+  ``kmeans_sample``,
   ``kmeans_lloyd`` (one segment of Lloyd iterations) and
   ``kmeans_refill`` (the empty-cluster re-seed and its host read);
   ``balanced_assign`` (rows) with ``assign_topk`` and ``assign_rounds``;
@@ -50,7 +54,10 @@ Two things record them:
   range open at its launch, and a range its device extent from the first
   to the last kernel so given: a region whose kernels all lie in its
   children has no extent, so ``expand`` launches the query's quantisation
-  and the id gather itself, around ``stage1`` and ``rerank``.
+  and the id gather itself, around ``stage1`` and ``rerank``. Where a
+  region would launch nothing of its own before or after a child (a bf16
+  copy needs no quantisation; ``route`` around ``route_chain``),
+  :func:`mark` launches a one-element fill there, under a trace alone.
 
 With neither open, :func:`annotate` is a shared no-op after one flag
 test: it records nothing and launches nothing, so the serving path keeps
@@ -244,6 +251,15 @@ def tracing() -> bool:
     """Whether a :func:`trace` is open: work that only a trace's readers
     need (a count that reads the device) runs only then."""
     return bool(_active)
+
+
+def mark(device) -> None:
+    """Inside an open :func:`trace`, a one-element fill on ``device``: a
+    kernel of the innermost open region, which fixes an end of that
+    region's device extent where only its children would launch. Outside a
+    trace it launches nothing."""
+    if _active:
+        torch.zeros(1, device=device)
 
 
 def annotate(name: str, work: int | None = None):
